@@ -1,0 +1,5 @@
+from ctdirect_tpu_torch.model.ocp import OCP, PreOCP, TimeSpec
+from ctdirect_tpu_torch.model.init import InitialGuess
+from ctdirect_tpu_torch.model.solution import Solution
+
+__all__ = ["OCP", "PreOCP", "TimeSpec", "InitialGuess", "Solution"]

@@ -1,0 +1,152 @@
+"""Batched receding-horizon MPC controller (PyTorch port of
+`ctdirect_tpu.parallel.mpc`, single device).
+
+Per tick, every batched instance gets its measured state x0 injected through
+the boundary-constraint right-hand sides, the previous optimal state is
+SHIFTED one step (the classic MPC warm start), and a fixed-iteration resolve
+(solver/resolve.py) returns the new plan. The tick is `torch.func.vmap` of the
+single-instance tick; inside it, each Newton step's block solve reaches the
+batched CR (the hand-written CUDA kernel on the card) once for the whole
+batch through the dispatch in solver/lanes.py."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from ctdirect_tpu_torch.solver.ipm import IPMOptions, make_spec
+from ctdirect_tpu_torch.solver.resolve import WarmState, make_resolver, warm_state_from_result
+from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
+from ctdirect_tpu_torch.transcription.docp import DOCP
+
+
+def shift_state(docp: DOCP, st: WarmState) -> WarmState:
+    """Shift the plan one step forward (duplicate the last step) — the MPC
+    warm start between consecutive horizons."""
+
+    def shift_z(z):
+        V = docp.unpack(z)
+        X = torch.cat([V.X[1:], V.X[-1:]], dim=0)
+        U = torch.cat([V.U[1:], V.U[-1:]], dim=0)
+        K = None
+        if V.K is not None:
+            K = torch.cat([V.K[1:], V.K[-1:]], dim=0)
+        return docp.pack(X, U, K, V.v)
+
+    def shift_rows(arr, width):
+        rows = arr[: docp.N * width].reshape(docp.N, width)
+        shifted = torch.cat([rows[1:], rows[-1:]], dim=0)
+        return torch.cat([shifted.reshape(-1), arr[docp.N * width :]])
+
+    return WarmState(
+        z=shift_z(st.z),
+        s=shift_rows(st.s, docp.cw),
+        lam=shift_rows(st.lam, docp.cw),
+        wL=shift_rows(st.wL, docp.bw),
+        wU=shift_rows(st.wU, docp.bw),
+        yL=shift_rows(st.yL, docp.cw),
+        yU=shift_rows(st.yU, docp.cw),
+    )
+
+
+class MPCController:
+    """Batched MPC loop over one DOCP structure, on one device.
+
+    The initial-state boundary rows to retarget are located via
+    `x0_boundary_rows`: indices (into the boundary-constraint rows) holding the
+    equality x(t0) == x0, in state-component order. `device` and `dtype` must
+    match the DOCP's."""
+
+    def __init__(
+        self,
+        docp: DOCP,
+        x0_boundary_rows,
+        resolve_iters: int = 3,
+        mu: float = 1e-6,
+        shift: bool = True,
+        kkt_algorithm: str = "scan",
+        kkt_solve_dtype: Optional[torch.dtype] = None,
+        kkt_equilibrate: bool = False,
+        mesh=None,
+        time_axis: Optional[str] = None,
+        *,
+        device,
+        dtype: torch.dtype = torch.float64,
+    ):
+        """kkt_solve_dtype=torch.float32 runs the block solve in f32 inside
+        the f64 Newton loop (the bench configuration). mesh/time_axis (the
+        JAX package's sharded ticks) are not ported yet."""
+        if mesh is not None or time_axis is not None:
+            raise NotImplementedError(
+                "sharded MPC ticks (mesh=/time_axis=) are not ported to "
+                "ctdirect_tpu_torch yet (ROADMAP.md, queue 1: time sharding)"
+            )
+        device = torch.device(device)
+        if device != docp.device or dtype != docp.dtype:
+            raise ValueError(
+                f"MPCController on {device}/{dtype} but the DOCP is on {docp.device}/{docp.dtype}"
+            )
+        self.docp = docp
+        self.device, self.dtype = device, dtype
+        self.shift = shift
+        spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+        # equilibration default OFF on the tick: the warm resolve is mildly
+        # conditioned by construction
+        self.kkt = StructuredKKT(
+            docp,
+            algorithm=kkt_algorithm,
+            solve_dtype=kkt_solve_dtype,
+            equilibrate=kkt_equilibrate,
+        )
+        resolve = make_resolver(
+            docp.nlp_objective,
+            docp.constraints,
+            spec,
+            self.kkt,
+            device=device,
+            iters=resolve_iters,
+            mu=mu,
+        )
+        rows = torch.as_tensor(
+            docp.boundary_row_indices()[np.asarray(x0_boundary_rows)], device=device
+        )
+        cl0 = docp.tensor(docp._c_lb)
+        cu0 = docp.tensor(docp._c_ub)
+        zl = docp.tensor(docp._z_lb)
+        zu = docp.tensor(docp._z_ub)
+
+        def tick(st: WarmState, x0):
+            cl = cl0.index_put((rows,), x0)
+            cu = cu0.index_put((rows,), x0)
+            if shift:
+                st = shift_state(docp, st)
+            res = resolve(st, zl, zu, cl, cu)
+            V = docp.unpack(res.state.z)
+            u0 = docp.scheme.node_controls(V.U)[0]
+            return res.state, u0, res.kkt_error, res.constraints_violation
+
+        self._tick = vmap(tick)
+
+    def __call__(self, states: WarmState, x0_batch):
+        """Advance all controllers one tick. states: batched WarmState;
+        x0_batch: (B, len(rows)). Returns (new_states, u0, kkt_err, viol)."""
+        return self._tick(states, x0_batch)
+
+    def cold_start(self, options: Optional[IPMOptions] = None, init=None) -> WarmState:
+        """One full-IPM solve to seed the warm state (unbatched)."""
+        from ctdirect_tpu_torch.solver.interface import _get_solver
+
+        docp = self.docp
+        opts = options or IPMOptions(tol=1e-8)
+        solver = _get_solver(docp, opts)
+        z0 = docp.initial_guess(init)
+        res, _post = solver(z0, docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+        return warm_state_from_result(res)
+
+
+def broadcast_state(st: WarmState, batch: int) -> WarmState:
+    """Tile an unbatched warm state across a batch axis."""
+    return WarmState(*(a.expand((batch,) + a.shape).clone() for a in st))

@@ -1,0 +1,36 @@
+"""Fixture OCP library with known reference objectives (PyTorch port of
+`ctdirect_tpu.problems`; each entry returns (ocp, obj, name, init)). Only
+`double_integrator_minenergy` is ported so far."""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+from ctdirect_tpu_torch.model.init import InitialGuess
+from ctdirect_tpu_torch.model.ocp import OCP
+
+
+class Problem(NamedTuple):
+    ocp: OCP
+    obj: Optional[float]
+    name: str
+    init: Optional[InitialGuess] = None
+
+
+_REGISTRY = {}
+
+
+def register(fn):
+    _REGISTRY[fn.__name__] = fn
+    return fn
+
+
+def get_problem(name: str) -> Problem:
+    return _REGISTRY[name]()
+
+
+def problem_names():
+    return sorted(_REGISTRY)
+
+
+from ctdirect_tpu_torch.problems import basic  # noqa: E402,F401

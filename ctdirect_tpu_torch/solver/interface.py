@@ -1,0 +1,116 @@
+"""High-level solve API (PyTorch port of `ctdirect_tpu.solver.interface`).
+
+`solve(ocp, ..., device=...)` is the front door: transcribe + solve + build
+Solution. The KKT operator is cached per (DOCP, options)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ctdirect_tpu_torch.model.init import InitialGuess
+from ctdirect_tpu_torch.model.ocp import OCP
+from ctdirect_tpu_torch.model.solution import Solution
+from ctdirect_tpu_torch.solver.ipm import STATUS_MESSAGES, IPMOptions, ipm_solve, make_spec
+from ctdirect_tpu_torch.transcription.docp import DOCP, transcribe
+
+
+def _get_solver(docp: DOCP, options: IPMOptions):
+    """run(z0, zl, zu, cl, cu) -> (IPMResult, postprocess tuple) on docp's
+    device, cached on the DOCP per options."""
+    cache = docp.__dict__.setdefault("_solver_cache", {})
+    if options not in cache:
+        spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+        if options.kkt_mode == "dense":
+            kkt = None  # ipm_solve defaults to DenseKKT
+        elif options.kkt_mode in ("structured", "cr"):
+            from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
+
+            algo = "cr" if options.kkt_mode == "cr" else "scan"
+            sdt = torch.float32 if options.kkt_solve_dtype in ("f32", "float32") else None
+            kkt = StructuredKKT(
+                docp,
+                algorithm=algo,
+                solve_dtype=sdt,
+                refine=options.kkt_refine if sdt is not None else 0,
+                equilibrate=options.kkt_equilibrate,
+            )
+        else:
+            raise ValueError(f"unknown kkt_mode {options.kkt_mode!r}")
+
+        def run(z0, zl, zu, cl, cu):
+            result = ipm_solve(
+                docp.nlp_objective,
+                docp.constraints,
+                spec,
+                z0,
+                zl,
+                zu,
+                cl,
+                cu,
+                options=options,
+                kkt=kkt,
+                device=docp.device,
+                dtype=docp.dtype,
+            )
+            return result, docp.postprocess(result.z)
+
+        cache[options] = run
+    return cache[options]
+
+
+def solve_docp(
+    docp: DOCP,
+    init: Optional[InitialGuess] = None,
+    options: IPMOptions = IPMOptions(),
+    display: bool = False,
+) -> Solution:
+    """Solve a transcribed DOCP (on its device) and map the result back to
+    continuous time."""
+    if isinstance(init, Solution):
+        init = InitialGuess.from_solution(init)
+    z0 = docp.initial_guess(init)
+    solver = _get_solver(docp, options)
+    result, post = solver(z0, docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+    sol = docp.build_solution(
+        result, message=STATUS_MESSAGES.get(int(result.status), "Unknown"), post=post
+    )
+    if display:
+        print(sol)
+    return sol
+
+
+def solve(
+    ocp: OCP,
+    grid_size: int = 250,
+    scheme: str = "midpoint",
+    time_grid=None,
+    control_steps: int = 1,
+    init: Optional[InitialGuess] = None,
+    options: Optional[IPMOptions] = None,
+    display: bool = False,
+    *,
+    device,
+    dtype: torch.dtype = torch.float64,
+    **opt_kwargs,
+) -> Solution:
+    """Transcribe and solve an OCP on `device` ("cpu", "cuda", ...) in `dtype`.
+
+    Defaults mirror the JAX package (grid_size=250, scheme="midpoint"; only
+    "trapeze" is ported so far). Extra keyword args are IPMOptions fields
+    (tol=..., max_iter=..., ...)."""
+    if options is None:
+        options = IPMOptions(**opt_kwargs)
+    elif opt_kwargs:
+        options = options.replace(**opt_kwargs)
+    docp = transcribe(
+        ocp,
+        grid_size=grid_size,
+        scheme=scheme,
+        time_grid=time_grid,
+        control_steps=control_steps,
+        device=device,
+        dtype=dtype,
+    )
+    return solve_docp(docp, init=init, options=options, display=display)

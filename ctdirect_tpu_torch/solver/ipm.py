@@ -1,0 +1,864 @@
+"""Primal-dual interior-point NLP solver (PyTorch port of
+`ctdirect_tpu.solver.ipm`).
+
+Problem form (the DOCP emits exactly this):
+
+    min  f(z)   s.t.   cl <= c(z) <= cu,   zl <= z <= zu
+
+Rows with cl == cu are equalities; the rest get slacks s with box [cl, cu]
+(Ipopt's formulation). Barrier terms are applied to every finite bound of z and
+s. The Newton system is condensed to the symmetric (nz + nc) form
+
+    [ W + Sigma_z + dw*I    J^T          ] [dz  ]   [ -rbar_z ]
+    [ J                     -(D + dc*I)  ] [dlam] = [ -rbar_p ]
+
+with D = 0 on equality rows and Sigma_s^{-1} on inequality rows, followed by
+recovery of ds and the bound multiplier steps, fraction-to-boundary step limits
+and a filter line search (Waechter-Biegler) with second-order correction.
+Regularization (dw, dc) is adapted inertia-free: if the step has insufficient
+positive curvature (or the solve produced NaNs), dw is increased and the KKT
+system re-solved. Monotone Fiacco-McCormick barrier schedule (or the LOQO
+adaptive rule), Ipopt-scaled termination error.
+
+The JAX package runs this as one traced program (`lax.while_loop`/`cond`);
+here it is one instance with Python control flow: every branch reads its
+condition back from the device (`.item()`), and the arithmetic follows the
+JAX package step for step so that a solve lands on the same iterates.
+Derivatives come from `torch.func` (grad, vjp, jvp).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import grad, jvp, vjp
+
+from ctdirect_tpu_torch.solver.kkt import DenseKKT
+
+
+# ----------------------------------------------------------------------------
+# Specs
+# ----------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class IPMOptions:
+    """Solver options (defaults chosen to match Ipopt's; the JAX package's
+    IPMOptions minus its three fields that no code reads)."""
+
+    tol: float = 1e-8
+    acceptable_tol: float = 1e-6  # Ipopt Solved_To_Acceptable_Level fallback
+    mu_init: float = 0.1
+    mu_min: float = 1e-12
+    # "monotone" (Fiacco-McCormick) or "adaptive" (LOQO-style centrality rule)
+    mu_strategy: str = "monotone"
+    kappa_mu: float = 0.2  # linear barrier decrease factor
+    theta_mu: float = 1.5  # superlinear barrier decrease exponent
+    # Ipopt bound_relax_factor: every box bound is relaxed internally by
+    # eps*max(1,|b|); the final primal point is clipped back
+    bound_relax_factor: float = 1e-8
+    kappa_eps: float = 10.0  # barrier subproblem tolerance = kappa_eps * mu
+    tau_min: float = 0.99  # fraction-to-boundary minimum
+    max_iter: int = 200
+    max_ls: int = 25  # backtracking steps
+    s_max: float = 100.0  # KKT error scaling threshold (Ipopt s_max)
+    kappa_push: float = 1e-2  # initial-point push from bounds
+    delta_w_init: float = 1e-8
+    delta_c: float = 1e-8  # constraint-block regularization
+    max_reg_trials: int = 20
+    curvature_frac: float = 1e-11  # inertia-free test threshold (Chiang-Zavala)
+    max_soft_fail: int = 8  # consecutive failed line searches before abort
+    # "structured" (block-tridiag elimination, O(N) depth) | "cr" (block cyclic
+    # reduction) | "dense" (correctness oracle, small N only)
+    kkt_mode: str = "structured"
+    # "f32": block solve in float32 inside the f64 Newton loop (needs the
+    # refinement/Ruiz machinery, not ported yet); None = full precision
+    kkt_solve_dtype: Optional[str] = None
+    kkt_refine: int = 2
+    kkt_equilibrate: Optional[bool] = None
+    grad_scaling: bool = True  # Ipopt gradient-based f/c scaling at z0
+    scaling_max_grad: float = 100.0
+    lsq_lambda_init: bool = True  # least-squares equality multiplier init
+    lambda_init_max: float = 1e3  # reject LS init if larger
+    # dual refresh (Ipopt recalc_y) when the line search collapses while
+    # nearly feasible
+    recalc_lam: bool = True
+    recalc_lam_feas_tol: float = 1e-3
+    recalc_lam_alpha: float = 0.02
+    # --- filter line search (Waechter-Biegler) parameters, Ipopt defaults ---
+    filter_size: int = 64  # fixed-capacity filter (circular overwrite)
+    gamma_theta: float = 1e-5
+    gamma_phi: float = 1e-8
+    delta_switch: float = 1.0
+    s_theta: float = 1.1
+    s_phi: float = 2.3
+    eta_phi: float = 1e-8  # Armijo constant for f-type steps
+    kappa_soc: float = 0.99  # SOC acceptance: theta_soc <= kappa_soc * theta
+    debug: bool = False  # print one line of line-search diagnostics per iteration
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+class NLPSpec(NamedTuple):
+    """Static structure of the NLP (masks are numpy bools)."""
+
+    nz: int
+    nc: int
+    eq_mask: np.ndarray  # (nc,) True on equality rows (cl == cu)
+    zl_mask: np.ndarray  # (nz,) True where zl finite
+    zu_mask: np.ndarray
+    sl_mask: np.ndarray  # (nc,) finite lower bound on inequality-row slack
+    su_mask: np.ndarray
+
+
+def make_spec(zl, zu, cl, cu) -> NLPSpec:
+    zl, zu = np.asarray(zl), np.asarray(zu)
+    cl, cu = np.asarray(cl), np.asarray(cu)
+    eq = np.isfinite(cl) & np.isfinite(cu) & (cl == cu)
+    ineq = ~eq
+    return NLPSpec(
+        nz=zl.shape[0],
+        nc=cl.shape[0],
+        eq_mask=eq,
+        zl_mask=np.isfinite(zl),
+        zu_mask=np.isfinite(zu),
+        sl_mask=ineq & np.isfinite(cl),
+        su_mask=ineq & np.isfinite(cu),
+    )
+
+
+class IPMResult(NamedTuple):
+    z: torch.Tensor
+    lam: torch.Tensor  # constraint multipliers (nc,)
+    zL: torch.Tensor  # lower bound multipliers on z (nz,)
+    zU: torch.Tensor
+    s: torch.Tensor  # slacks (nc; meaningful on inequality rows)
+    yL: torch.Tensor  # slack lower-bound duals (inequality rows)
+    yU: torch.Tensor
+    objective: torch.Tensor
+    iterations: int
+    kkt_error: torch.Tensor
+    constraints_violation: torch.Tensor
+    status: int  # 0 solved, 1 max_iter, 2 line-search stall, 3 diverged, 4 acceptable
+    successful: bool
+
+
+STATUS_MESSAGES = {
+    0: "Solve_Succeeded",
+    1: "Maximum_Iterations_Exceeded",
+    2: "Search_Direction_Becomes_Too_Small",
+    3: "Diverging_Iterates",
+    4: "Solved_To_Acceptable_Level",
+}
+
+
+# ----------------------------------------------------------------------------
+# Helpers (all vmappable: the warm resolve runs them under torch.func.vmap,
+# where every reduction stays per instance)
+# ----------------------------------------------------------------------------
+
+
+def _safe_gap(x, lb, mask):
+    """x - lb where the bound is finite, else 1 (keeps arithmetic NaN-free)."""
+    return torch.where(mask, x - torch.where(mask, lb, 0.0), 1.0)
+
+
+def _amin(x, initial: float):
+    """min(x) with an initial value (jnp.min(x, initial=...)); empty x gives
+    the initial value."""
+    if x.shape[-1] == 0:
+        return x.new_full((), initial)
+    return torch.clamp(torch.amin(x), max=initial)
+
+
+def _amax(x, initial: float):
+    """max(x) with an initial value (jnp.max(x, initial=...))."""
+    if x.shape[-1] == 0:
+        return x.new_full((), initial)
+    return torch.clamp(torch.amax(x), min=initial)
+
+
+def _max_step_to_boundary(x, dx, lb, ub, lmask, umask, tau):
+    """Largest alpha in (0, 1] with x + alpha dx >= lb + (1-tau) gap etc."""
+    gapL = _safe_gap(x, lb, lmask)
+    gapU = _safe_gap(ub, x, umask)
+    # alpha limit where dx pushes toward a finite bound
+    aL = torch.where(lmask & (dx < 0), -tau * gapL / torch.where(dx < 0, dx, -1.0), 1.0)
+    aU = torch.where(umask & (dx > 0), tau * gapU / torch.where(dx > 0, dx, 1.0), 1.0)
+    lo = torch.minimum(_amin(aL, 1.0), _amin(aU, 1.0))
+    return torch.clamp(lo, 0.0, 1.0)
+
+
+def _dual_step_to_boundary(w, dw, mask, tau):
+    """Largest alpha keeping w + alpha dw >= (1-tau) w (w >= 0 duals)."""
+    a = torch.where(mask & (dw < 0), -tau * w / torch.where(dw < 0, dw, -1.0), 1.0)
+    return torch.clamp(_amin(a, 1.0), 0.0, 1.0)
+
+
+def _clip(x, lo, hi):
+    """jnp.clip with tensor bounds: min(max(x, lo), hi)."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+# ----------------------------------------------------------------------------
+# Core solver
+# ----------------------------------------------------------------------------
+
+
+class _Carry(NamedTuple):
+    z: torch.Tensor
+    s: torch.Tensor  # (nc,) slacks; 0 on eq rows
+    lam: torch.Tensor
+    wL: torch.Tensor  # z lower bound duals
+    wU: torch.Tensor
+    yL: torch.Tensor  # slack lower bound duals
+    yU: torch.Tensor
+    mu: torch.Tensor
+    filt_theta: torch.Tensor  # (filter_size,) augmented theta entries (inf = empty)
+    filt_phi: torch.Tensor  # (filter_size,) augmented phi entries
+    filt_n: int  # next write slot
+    delta_w_last: torch.Tensor
+    it: int
+    done: bool
+    status: int
+    kkt_err: torch.Tensor
+    soft_fails: int
+
+
+def ipm_solve(
+    f: Callable,
+    c: Callable,
+    spec: NLPSpec,
+    z0,
+    zl,
+    zu,
+    cl,
+    cu,
+    options: IPMOptions = IPMOptions(),
+    kkt=None,
+    *,
+    device,
+    dtype: torch.dtype = torch.float64,
+) -> IPMResult:
+    """Solve the NLP on `device` in `dtype`.
+
+    `kkt` is a KKT operator (see solver/kkt.py) supplying derivative assembly
+    and the condensed-system solve; defaults to DenseKKT. Pass a StructuredKKT
+    to solve the block-tridiagonal + arrowhead collocation system in O(N)."""
+    opts = options
+    nz, nc = spec.nz, spec.nc
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    def mask(x):
+        return torch.as_tensor(x, dtype=torch.bool, device=device)
+
+    z0, zl, zu, cl, cu = (tensor(x) for x in (z0, zl, zu, cl, cu))
+    zl_orig, zu_orig = zl, zu
+
+    eq = mask(spec.eq_mask)
+    ineq = ~eq
+    zlm = mask(spec.zl_mask)
+    zum = mask(spec.zu_mask)
+    slm = mask(spec.sl_mask)
+    sum_ = mask(spec.su_mask)
+    n_duals = float(nc + nz)  # for Ipopt-style scaling
+
+    # Ipopt bound_relax_factor: relax every finite box bound (z boxes and
+    # inequality-row slack boxes) by eps*max(1,|b|); equality rows untouched.
+    if opts.bound_relax_factor > 0:
+        brf = opts.bound_relax_factor
+
+        def _relax(lo, hi, row_eq=None):
+            rl = lo - brf * torch.clamp(torch.abs(lo), min=1.0)
+            rh = hi + brf * torch.clamp(torch.abs(hi), min=1.0)
+            if row_eq is not None:  # keep equality rows exact
+                rl = torch.where(row_eq, lo, rl)
+                rh = torch.where(row_eq, hi, rh)
+            return rl, rh
+
+        zl, zu = _relax(zl, zu)
+        cl, cu = _relax(cl, cu, eq)
+
+    # ---- gradient-based scaling (Ipopt nlp_scaling_method=gradient-based):
+    # scale f and each constraint row so its gradient inf-norm at z0 is <= 100.
+    f_user, c_user = f, c
+    if kkt is None:
+        kkt = DenseKKT(f_user, c_user, nz, nc)
+    if opts.grad_scaling:
+        g0 = grad(f_user)(z0)
+        scale_f = torch.clamp(
+            opts.scaling_max_grad / torch.clamp(torch.amax(torch.abs(g0)), min=1e-8), max=1.0
+        )
+        row_norm = kkt.row_norms(z0)
+        scale_c = torch.clamp(opts.scaling_max_grad / torch.clamp(row_norm, min=1e-8), max=1.0)
+
+        def f(z):
+            return scale_f * f_user(z)
+
+        def c(z):
+            return scale_c * c_user(z)
+
+        cl = scale_c * cl
+        cu = scale_c * cu
+    else:
+        scale_f = tensor(1.0)
+        scale_c = torch.ones((nc,), dtype=dtype, device=device)
+
+    grad_f = grad(f)
+
+    def lag_hvp(z, lam, v):
+        """(scaled) Lagrangian Hessian-vector product, matrix-free."""
+        g = grad(lambda z3: f(z3) + torch.dot(lam, c(z3)))
+        return jvp(g, (z,), (v,))[1]
+
+    def vjp_c(z, lam):
+        return vjp(c, z)[1](lam)[0]
+
+    # slack bounds: cl/cu on inequality rows; harmless [0,0] placeholders on eq rows
+    sl = torch.where(ineq, cl, 0.0)
+    su = torch.where(ineq, cu, 0.0)
+
+    # ---- initial point (Ipopt-style push into the interior) ----
+    kap = opts.kappa_push
+
+    def push_interior(x, lb, ub, lmask, umask):
+        lo = torch.where(lmask, lb, -torch.inf)
+        hi = torch.where(umask, ub, torch.inf)
+        width = torch.where(lmask & umask, hi - lo, torch.inf)
+        pL = torch.where(
+            lmask, torch.minimum(kap * torch.clamp(torch.abs(lo), min=1.0), 0.5 * width), 0.0
+        )
+        pU = torch.where(
+            umask, torch.minimum(kap * torch.clamp(torch.abs(hi), min=1.0), 0.5 * width), 0.0
+        )
+        x = torch.where(lmask, torch.maximum(x, lo + pL), x)
+        x = torch.where(umask, torch.minimum(x, hi - pU), x)
+        return x
+
+    z_init = push_interior(z0, zl, zu, zlm, zum)
+    c0 = c(z_init)
+    s_init = torch.where(ineq, push_interior(c0, sl, su, slm, sum_), 0.0)
+
+    mu0 = tensor(opts.mu_init)
+    gapL0 = _safe_gap(z_init, zl, zlm)
+    gapU0 = _safe_gap(zu, z_init, zum)
+    sgapL0 = _safe_gap(s_init, sl, slm)
+    sgapU0 = _safe_gap(su, s_init, sum_)
+    wL0 = torch.where(zlm, mu0 / gapL0, 0.0)
+    wU0 = torch.where(zum, mu0 / gapU0, 0.0)
+    yL0 = torch.where(slm, mu0 / sgapL0, 0.0)
+    yU0 = torch.where(sum_, mu0 / sgapU0, 0.0)
+
+    rhs_eq = torch.where(eq, cl, 0.0)
+
+    # ---- residuals ----
+    def primal_residual(z, s):
+        return c(z) - rhs_eq - torch.where(ineq, s, 0.0)
+
+    def kkt_error_pair(z, s, lam, wL, wU, yL, yU, mu):
+        """Ipopt's scaled optimality error E_mu, at BOTH the current barrier mu
+        and mu = 0 in one pass (they share every residual)."""
+        gL = _safe_gap(z, zl, zlm)
+        gU = _safe_gap(zu, z, zum)
+        sgL = _safe_gap(s, sl, slm)
+        sgU = _safe_gap(su, s, sum_)
+        r_d = grad_f(z) + vjp_c(z, lam) - wL + wU
+        r_s = torch.where(ineq, -lam - yL + yU, 0.0)
+        r_p = primal_residual(z, s)
+        prods = torch.cat(
+            [
+                torch.where(zlm, wL * gL, 0.0),
+                torch.where(zum, wU * gU, 0.0),
+                torch.where(slm, yL * sgL, 0.0),
+                torch.where(sum_, yU * sgU, 0.0),
+            ]
+        )
+        masks = torch.cat([zlm, zum, slm, sum_])
+        bound_dual_sum = torch.sum(wL + wU) + torch.sum(yL + yU)
+        dual_sum = torch.sum(torch.abs(lam)) + bound_dual_sum
+        s_d = torch.clamp(dual_sum / n_duals, min=opts.s_max) / opts.s_max
+        s_c = (
+            torch.clamp(bound_dual_sum / max(1.0, float(nz + nc)), min=opts.s_max)
+            / opts.s_max
+        )
+        e_d = torch.amax(torch.abs(torch.cat([r_d, r_s]))) / s_d
+        e_p = _amax(torch.abs(r_p), 0.0)
+        e_c0 = _amax(torch.abs(prods), 0.0) / s_c
+        e_cmu = _amax(torch.abs(torch.where(masks, prods - mu, 0.0)), 0.0) / s_c
+        base = torch.maximum(e_d, e_p)
+        return torch.maximum(base, e_cmu), torch.maximum(base, e_c0), e_p
+
+    def barrier_phi(z, s):
+        gL = _safe_gap(z, zl, zlm)
+        gU = _safe_gap(zu, z, zum)
+        sgL = _safe_gap(s, sl, slm)
+        sgU = _safe_gap(su, s, sum_)
+        barr = (
+            torch.sum(torch.where(zlm, torch.log(gL), 0.0))
+            + torch.sum(torch.where(zum, torch.log(gU), 0.0))
+            + torch.sum(torch.where(slm, torch.log(sgL), 0.0))
+            + torch.sum(torch.where(sum_, torch.log(sgU), 0.0))
+        )
+        return f(z), barr
+
+    # ---- filter initialization (Ipopt: theta_max = 1e4 max(1, theta_0),
+    # theta_min = 1e-4 max(1, theta_0); the filter starts as {theta >= theta_max}) ----
+    theta_at_init = torch.sum(torch.abs(primal_residual(z_init, s_init)))
+    theta_max = 1e4 * torch.clamp(theta_at_init, min=1.0)
+    theta_min = 1e-4 * torch.clamp(theta_at_init, min=1.0)
+
+    def _fresh_filter():
+        th = torch.full((opts.filter_size,), torch.inf, dtype=dtype, device=device)
+        th[0] = theta_max
+        ph = torch.full((opts.filter_size,), -torch.inf, dtype=dtype, device=device)
+        return th, ph
+
+    n_compl = int(
+        np.sum(spec.zl_mask) + np.sum(spec.zu_mask) + np.sum(spec.sl_mask) + np.sum(spec.su_mask)
+    )
+    zeros_nz = torch.zeros((nz,), dtype=dtype, device=device)
+    zeros_nc = torch.zeros((nc,), dtype=dtype, device=device)
+
+    # ---- one IPM iteration ----
+    def step(carry: _Carry) -> _Carry:
+        z, s, lam, wL, wU, yL, yU = carry[:7]
+        mu = carry.mu
+
+        gL = _safe_gap(z, zl, zlm)
+        gU = _safe_gap(zu, z, zum)
+        sgL = _safe_gap(s, sl, slm)
+        sgU = _safe_gap(su, s, sum_)
+
+        if opts.mu_strategy == "adaptive" and n_compl > 0:
+            # LOQO centrality rule: mu = sigma * avg_compl with sigma driven by
+            # how uncentered the most-converged complementarity pair is
+            prods = torch.cat(
+                [
+                    torch.where(zlm, wL * gL, torch.nan),
+                    torch.where(zum, wU * gU, torch.nan),
+                    torch.where(slm, yL * sgL, torch.nan),
+                    torch.where(sum_, yU * sgU, torch.nan),
+                ]
+            )
+            avg = torch.nansum(prods) / n_compl
+            xi = torch.amin(torch.where(torch.isnan(prods), torch.inf, prods)) / torch.clamp(
+                avg, min=1e-300
+            )
+            sigma_c = 0.1 * torch.clamp(0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-12), max=2.0) ** 3
+            # rate-limit the decrease (factor 100/iter)
+            mu = _clip(sigma_c * avg, torch.clamp(1e-2 * mu, min=opts.mu_min), tensor(opts.mu_init))
+
+        sigma_z = torch.where(zlm, wL / gL, 0.0) + torch.where(zum, wU / gU, 0.0)
+        sigma_s = torch.where(slm, yL / sgL, 0.0) + torch.where(sum_, yU / sgU, 0.0)
+        # inequality rows with no finite slack bound at all would make D singular
+        sigma_s = torch.where(ineq, torch.clamp(sigma_s, min=1e-12), 1.0)
+
+        kdata = kkt.prepare(z, lam, scale_f, scale_c)
+
+        gf = grad_f(z)
+        rbar_z = (
+            gf
+            + vjp_c(z, lam)
+            - torch.where(zlm, mu / gL, 0.0)
+            + torch.where(zum, mu / gU, 0.0)
+        )
+        rbar_s = torch.where(
+            ineq,
+            -lam - torch.where(slm, mu / sgL, 0.0) + torch.where(sum_, mu / sgU, 0.0),
+            0.0,
+        )
+        r_p = primal_residual(z, s)
+        rbar_p = r_p + torch.where(ineq, rbar_s / sigma_s, 0.0)
+        Drow = torch.where(ineq, 1.0 / sigma_s, 0.0)
+
+        # ---- regularized KKT solve with inertia-free curvature retry ----
+        # delta_w is scaled by the Lagrangian Hessian's diagonal only
+        h_scale = kkt.diag_scale(kdata)
+
+        def reg_solve(delta_w, delta_c):
+            dz, dlam = kkt.solve(kdata, sigma_z, Drow, delta_w, delta_c, rbar_z, rbar_p)
+            ds = torch.where(ineq, (dlam - rbar_s) / sigma_s, 0.0)
+            # inertia-free acceptance (Chiang-Zavala): curvature along the full
+            # primal step (z AND slacks) must be sufficiently positive
+            curv = (
+                dz @ lag_hvp(z, lam, dz)
+                + (sigma_z + delta_w) @ (dz * dz)
+                + ds @ (sigma_s * ds)
+            )
+            nrm2 = dz @ dz + ds @ ds
+            ok = (
+                torch.isfinite(dz).all()
+                & torch.isfinite(dlam).all()
+                & (curv >= opts.curvature_frac * nrm2)
+            )
+            return dz, dlam, ds, bool(ok)
+
+        # retry ladder (Ipopt inertia-correction analogue, Waechter-Biegler
+        # Algorithm IC): trial 0 unregularized; then the decayed last-used
+        # value (kappa_w^- = 1/3), escalating by 8 (100 on the very first
+        # correction); the dual regularization delta_c = delta_c_bar mu^{1/4}
+        # engages with it, proportional to the primal one
+        delta_c_reg = torch.clamp(1e-8 * mu**0.25, min=opts.delta_c)
+        never_used = bool(carry.delta_w_last == 0.0)
+        delta_w, trials = tensor(0.0), 0
+        dz, dlam, ds, solve_ok = zeros_nz, zeros_nc, zeros_nc, False
+        while (not solve_ok) and trials <= opts.max_reg_trials:
+            if trials == 0:
+                new_dw = tensor(0.0)
+                new_dc = tensor(opts.delta_c)
+            else:
+                if trials == 1:
+                    if never_used:
+                        new_dw = opts.delta_w_init * h_scale
+                    else:
+                        new_dw = torch.maximum(1e-20 * h_scale, carry.delta_w_last / 3.0)
+                else:
+                    new_dw = delta_w * (100.0 if never_used else 8.0)
+                new_dc = torch.maximum(delta_c_reg, 1e-8 * new_dw)
+            dz, dlam, ds, solve_ok = reg_solve(new_dw, new_dc)
+            delta_w, trials = new_dw, trials + 1
+        delta_w_used = delta_w
+        delta_w_last = torch.where(delta_w_used > 0, delta_w_used, carry.delta_w_last)
+
+        # ---- fraction-to-boundary (primal) ----
+        tau = torch.clamp(1.0 - mu, min=opts.tau_min)
+        a_z = _max_step_to_boundary(z, dz, zl, zu, zlm, zum, tau)
+        a_s = _max_step_to_boundary(s, ds, sl, su, slm, sum_, tau)
+        alpha_max = torch.minimum(a_z, a_s)
+
+        # ---- filter line search (Waechter-Biegler / Ipopt) ----
+        theta0 = torch.sum(torch.abs(r_p))
+        f0, b0 = barrier_phi(z, s)
+        phi0 = f0 - mu * b0
+        # barrier-function directional derivative
+        dphi = (
+            gf @ dz
+            - torch.sum(torch.where(zlm, mu / gL * dz, 0.0))
+            + torch.sum(torch.where(zum, mu / gU * dz, 0.0))
+            - torch.sum(torch.where(slm, mu / sgL * ds, 0.0))
+            + torch.sum(torch.where(sum_, mu / sgU * ds, 0.0))
+        )
+        filt_th, filt_ph = carry.filt_theta, carry.filt_phi
+
+        def eval_trial(zt, st):
+            ft, bt = barrier_phi(zt, st)
+            phi_t = ft - mu * bt
+            theta_t = torch.sum(torch.abs(primal_residual(zt, st)))
+            return theta_t, phi_t
+
+        def trial_accept(alpha, theta_t, phi_t):
+            """(accepted, is_ftype) per the filter method's case analysis."""
+            not_blocked = ~torch.any((theta_t >= filt_th) & (phi_t >= filt_ph))
+            switching = (dphi < 0) & (
+                alpha * (-dphi) ** opts.s_phi > opts.delta_switch * theta0**opts.s_theta
+            )
+            armijo = phi_t <= phi0 + opts.eta_phi * alpha * dphi
+            suff = (theta_t <= (1.0 - opts.gamma_theta) * theta0) | (
+                phi_t <= phi0 - opts.gamma_phi * theta0
+            )
+            ok_f = switching & armijo
+            ok = torch.where(theta0 <= theta_min, torch.where(switching, ok_f, suff), ok_f | suff)
+            ok = ok & not_blocked & torch.isfinite(phi_t) & torch.isfinite(theta_t)
+            ok, ok_f = torch.stack([ok, ok_f]).tolist()
+            return ok, ok_f
+
+        # first trial at alpha_max (+ second-order correction on rejection)
+        th_1, ph_1 = eval_trial(z + alpha_max * dz, s + alpha_max * ds)
+        ok_1, ftype_1 = trial_accept(alpha_max, th_1, ph_1)
+
+        # SOC: if the full step was rejected and did not reduce infeasibility,
+        # re-solve with rhs alpha*r_p + r_p(trial) (same KKT matrix)
+        delta_c_used = (
+            torch.maximum(delta_c_reg, 1e-8 * delta_w_used) if bool(delta_w_used > 0)
+            else tensor(opts.delta_c)
+        )
+        soc_wanted = (not ok_1) and bool(th_1 >= theta0)
+        soc_valid, ftype_soc = False, False
+        if soc_wanted:
+            rp_trial = primal_residual(z + alpha_max * dz, s + alpha_max * ds)
+            rbar_p_soc = (alpha_max * r_p + rp_trial) + torch.where(ineq, rbar_s / sigma_s, 0.0)
+            dz_c, dlam_c = kkt.solve(
+                kdata, sigma_z, Drow, delta_w_used, delta_c_used, rbar_z, rbar_p_soc
+            )
+            ds_c = torch.where(ineq, (dlam_c - rbar_s) / sigma_s, 0.0)
+            a_soc = torch.minimum(
+                _max_step_to_boundary(z, dz_c, zl, zu, zlm, zum, tau),
+                _max_step_to_boundary(s, ds_c, sl, su, slm, sum_, tau),
+            )
+            th_soc, ph_soc = eval_trial(z + a_soc * dz_c, s + a_soc * ds_c)
+            ok_soc_raw, ftype_soc = trial_accept(a_soc, th_soc, ph_soc)
+            soc_valid = (
+                ok_soc_raw
+                and bool(torch.isfinite(dz_c).all())
+                and bool(th_soc <= opts.kappa_soc * theta0)
+            )
+
+        # backtracking from alpha_max/2 (only reached if both trials failed)
+        alpha_bt, ls_it = alpha_max * 0.5, 0
+        ok_bt, ftype_bt = ok_1 or soc_valid, False
+        while (not ok_bt) and ls_it < opts.max_ls:
+            th_t, ph_t = eval_trial(z + alpha_bt * dz, s + alpha_bt * ds)
+            ok_bt, ftype_bt = trial_accept(alpha_bt, th_t, ph_t)
+            if not ok_bt:
+                alpha_bt = alpha_bt * 0.5
+            ls_it += 1
+
+        use_soc = soc_valid and not ok_1
+        accepted = ok_1 or soc_valid or ok_bt
+        if opts.debug:
+            print(
+                f"it={carry.it} mu={float(mu):.1e} amax={float(alpha_max):.2e} "
+                f"th0={float(theta0):.3e} phi0={float(phi0):.6e} dphi={float(dphi):.3e} "
+                f"ok1={ok_1} soc={soc_valid} okbt={ok_bt} abt={float(alpha_bt):.2e} "
+                f"dw={float(delta_w_used):.1e}"
+            )
+        if ok_1:
+            alpha, is_ftype = alpha_max, ftype_1
+        elif use_soc:
+            alpha, is_ftype = a_soc, ftype_soc
+        else:
+            alpha, is_ftype = alpha_bt, ftype_bt
+        if not accepted:
+            alpha = alpha_max * (0.5 ** opts.max_ls)
+        if use_soc:
+            dz_f, ds_f, dlam_f = dz_c, ds_c, dlam_c
+        else:
+            dz_f, ds_f, dlam_f = dz, ds, dlam
+
+        # augment the filter on h-type (non-Armijo) accepted steps
+        filt_th_n, filt_ph_n, filt_n_n = filt_th, filt_ph, carry.filt_n
+        if accepted and not is_ftype:
+            slot = carry.filt_n % opts.filter_size
+            filt_th_n, filt_ph_n = filt_th.clone(), filt_ph.clone()
+            filt_th_n[slot] = (1.0 - opts.gamma_theta) * theta0
+            filt_ph_n[slot] = phi0 - opts.gamma_phi * theta0
+            filt_n_n = carry.filt_n + 1
+
+        # bound-multiplier steps along the selected direction, full dual FTB step
+        dwL = torch.where(zlm, -(wL / gL) * dz_f - wL + mu / gL, 0.0)
+        dwU = torch.where(zum, (wU / gU) * dz_f - wU + mu / gU, 0.0)
+        dyL = torch.where(slm, -(yL / sgL) * ds_f - yL + mu / sgL, 0.0)
+        dyU = torch.where(sum_, (yU / sgU) * ds_f - yU + mu / sgU, 0.0)
+        a_wL = _dual_step_to_boundary(wL, dwL, zlm, tau)
+        a_wU = _dual_step_to_boundary(wU, dwU, zum, tau)
+        a_yL = _dual_step_to_boundary(yL, dyL, slm, tau)
+        a_yU = _dual_step_to_boundary(yU, dyU, sum_, tau)
+        alpha_dual = torch.minimum(torch.minimum(a_wL, a_wU), torch.minimum(a_yL, a_yU))
+
+        z_n = z + alpha * dz_f
+        s_n = s + alpha * ds_f
+        lam_n = lam + alpha * dlam_f
+        wL_n = torch.clamp(wL + alpha_dual * dwL, min=0.0)
+        wU_n = torch.clamp(wU + alpha_dual * dwU, min=0.0)
+        yL_n = torch.clamp(yL + alpha_dual * dyL, min=0.0)
+        yU_n = torch.clamp(yU + alpha_dual * dyU, min=0.0)
+
+        # ---- feasibility restoration (lite): when NO trial step is
+        # acceptable, take a damped Gauss-Newton step on the constraint
+        # violation with the slacks reset to the projection of c(z) onto their
+        # box, reset the equality multipliers and restart the filter ----
+        did_restore = not accepted
+        resto_progress = False
+        if did_restore:
+            gn_data = kkt.gauss_newton_data(kdata)
+            s_r = torch.where(ineq, push_interior(c(z), sl, su, slm, sum_), 0.0)
+            r_r = primal_residual(z, s_r)
+            dz_gn, _ = kkt.solve(
+                gn_data,
+                zeros_nz,
+                torch.ones((nc,), dtype=dtype, device=device),
+                tensor(1e-8),
+                tensor(0.0),
+                zeros_nz,
+                r_r,
+            )
+            dz_gn = torch.where(torch.isfinite(dz_gn), dz_gn, 0.0)
+            a_r = _max_step_to_boundary(z, dz_gn, zl, zu, zlm, zum, tau)
+            cand = a_r * 0.5 ** torch.arange(8, dtype=dtype, device=device)
+            ths = torch.stack(
+                [torch.sum(torch.abs(primal_residual(z + a * dz_gn, s_r))) for a in cand]
+            )
+            kbest = torch.argmin(ths)
+            z_n = z + cand[kbest] * dz_gn
+            s_n = torch.where(ineq, push_interior(c(z_n), sl, su, slm, sum_), 0.0)
+            lam_n = torch.zeros_like(lam)
+            resto_progress = bool(ths[kbest] <= (1.0 - 1e-4) * theta0)
+        if accepted and solve_ok:
+            soft_fails = 0
+        elif resto_progress:
+            soft_fails = carry.soft_fails
+        else:
+            soft_fails = carry.soft_fails + 1
+
+        # Ipopt's kappa_Sigma dual safeguard: keep bound duals consistent with mu
+        def clamp_dual(wv, gap, mask_):
+            lo = mu / (1e10 * gap)
+            hi = 1e10 * mu / gap
+            return torch.where(mask_, _clip(wv, lo, hi), 0.0)
+
+        wL_n = clamp_dual(wL_n, _safe_gap(z_n, zl, zlm), zlm)
+        wU_n = clamp_dual(wU_n, _safe_gap(zu, z_n, zum), zum)
+        yL_n = clamp_dual(yL_n, _safe_gap(s_n, sl, slm), slm)
+        yU_n = clamp_dual(yU_n, _safe_gap(su, s_n, sum_), sum_)
+
+        # ---- dual refresh (Ipopt recalc_y; see IPMOptions.recalc_lam) ----
+        if (
+            opts.recalc_lam
+            and nc > 0
+            and accepted
+            and bool(alpha <= opts.recalc_lam_alpha)
+            and bool(theta0 <= opts.recalc_lam_feas_tol)
+        ):
+            g_n = grad_f(z_n) - wL_n + wU_n
+            # damp inequality rows in the LSQ system and refresh ONLY the
+            # equality multipliers
+            lam_ls = kkt.lsq_lambda(z_n, g_n, scale_f, scale_c, Drow=ineq.to(dtype))
+            lam_ls = torch.where(eq, lam_ls, lam_n)
+
+            def e_d(lam_try):
+                return torch.amax(torch.abs(g_n + vjp_c(z_n, lam_try)))
+
+            # monotone safeguard: keep the refresh only if it strictly reduces
+            # the dual residual at z_n
+            ok = (
+                torch.isfinite(lam_ls).all()
+                & (torch.amax(torch.abs(lam_ls)) < 1e8)
+                & (e_d(lam_ls) < 0.5 * e_d(lam_n))
+            )
+            if bool(ok):
+                lam_n = lam_ls
+
+        # ---- convergence & barrier update ----
+        err_mu, err_0, _ = kkt_error_pair(z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n, mu)
+
+        # a non-finite TRIAL point is a failed iteration, not divergence:
+        # revert to the previous iterate
+        if not bool(torch.isfinite(err_0)):
+            z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n = z, s, lam, wL, wU, yL, yU
+            err_0 = carry.kkt_err
+            err_mu = tensor(torch.inf)  # no barrier decrease
+            soft_fails = carry.soft_fails + 1
+
+        if opts.mu_strategy == "adaptive" and n_compl > 0:
+            # adaptive mode recomputes mu at the top of every iteration; the
+            # filter is only restarted on restoration
+            mu_next, mu_changed = mu, False
+        else:
+            mu_next = mu
+            if bool(err_mu <= opts.kappa_eps * mu):
+                mu_next = torch.clamp(
+                    torch.minimum(opts.kappa_mu * mu, mu**opts.theta_mu), min=opts.mu_min
+                )
+            mu_next = torch.clamp(mu_next, min=opts.mu_min)
+            mu_changed = bool(mu_next < mu)
+
+        # the filter belongs to one barrier subproblem: reset it when mu drops
+        # and after a restoration step
+        if mu_changed or did_restore:
+            filt_th_n, filt_ph_n = _fresh_filter()
+            filt_n_n = 1
+
+        converged = bool(err_0 <= opts.tol)
+        diverged = (not bool(torch.isfinite(err_0))) or bool(torch.amax(torch.abs(z_n)) > 1e20)
+        stalled = soft_fails >= opts.max_soft_fail
+        status = 0 if converged else 3 if diverged else 2 if stalled else 1
+
+        return _Carry(
+            z=z_n,
+            s=s_n,
+            lam=lam_n,
+            wL=wL_n,
+            wU=wU_n,
+            yL=yL_n,
+            yU=yU_n,
+            mu=mu_next,
+            filt_theta=filt_th_n,
+            filt_phi=filt_ph_n,
+            filt_n=filt_n_n,
+            delta_w_last=delta_w_last,
+            it=carry.it + 1,
+            done=converged or diverged or stalled,
+            status=status,
+            kkt_err=err_0,
+            soft_fails=soft_fails,
+        )
+
+    # ---- outer iteration loop ----
+    lam0 = zeros_nc
+    if opts.lsq_lambda_init and nc > 0:
+        # least-squares multiplier init: solve (J J^T + eps I) lam =
+        # -J (grad f - wL + wU); reject if too large
+        g_init = grad_f(z_init) - wL0 + wU0
+        lam_ls = kkt.lsq_lambda(z_init, g_init, scale_f, scale_c)
+        if bool(
+            (torch.amax(torch.abs(lam_ls)) <= opts.lambda_init_max)
+            & torch.isfinite(lam_ls).all()
+        ):
+            lam0 = lam_ls
+    _, err_init, _ = kkt_error_pair(z_init, s_init, lam0, wL0, wU0, yL0, yU0, 0.0)
+    init_done = bool(err_init <= opts.tol)
+    th0, ph0 = _fresh_filter()
+
+    carry = _Carry(
+        z=z_init,
+        s=s_init,
+        lam=lam0,
+        wL=wL0,
+        wU=wU0,
+        yL=yL0,
+        yU=yU0,
+        mu=mu0,
+        filt_theta=th0,
+        filt_phi=ph0,
+        filt_n=1,
+        delta_w_last=tensor(0.0),
+        it=0,
+        done=init_done,
+        status=0 if init_done else 1,
+        kkt_err=err_init,
+        soft_fails=0,
+    )
+
+    if opts.max_iter > 0:
+        while (not carry.done) and carry.it < opts.max_iter:
+            carry = step(carry)
+    final = carry
+
+    viol_final = _amax(torch.abs(primal_residual(final.z, final.s) / scale_c), 0.0)
+    status = final.status if final.done else 1
+    # acceptable-level fallback: a stall or iteration cap with the error already
+    # below acceptable_tol counts as success (Ipopt Solved_To_Acceptable_Level)
+    if status not in (0, 3) and bool(final.kkt_err <= opts.acceptable_tol):
+        status = 4
+    if opts.max_iter == 0:
+        # transcription round-trip mode: report the init as "solved"
+        status = 0
+
+    # honor_original_bounds: project the final point back inside the
+    # UNRELAXED box
+    z_out = torch.clamp(final.z, zl_orig, zu_orig)
+
+    # unscale duals back to the user's problem: the scaled problem is
+    # min s_f f s.t. s_c c, so lam_user = lam * s_c / s_f, bound duals / s_f
+    return IPMResult(
+        z=z_out,
+        lam=final.lam * scale_c / scale_f,
+        zL=final.wL / scale_f,
+        zU=final.wU / scale_f,
+        s=final.s,
+        yL=final.yL,
+        yU=final.yU,
+        objective=f_user(z_out),
+        iterations=final.it,
+        kkt_error=final.kkt_err,
+        constraints_violation=viol_final,
+        status=status,
+        successful=status in (0, 4),
+    )

@@ -1,0 +1,4 @@
+from ctdirect_tpu_torch.transcription.docp import DOCP, transcribe
+from ctdirect_tpu_torch.transcription.schemes import SCHEMES, get_scheme
+
+__all__ = ["DOCP", "transcribe", "SCHEMES", "get_scheme"]
