@@ -7,15 +7,22 @@ controllers at once. Derivatives come from `torch.func`; the batched block
 cyclic-reduction KKT solve is a hand-written CUDA kernel on the card
 (csrc/cr_solve.cu) with a plain PyTorch version on the CPU.
 
-Every public entry point (`transcribe`, `solve`, `MPCController`) takes an
-explicit `device=` and `dtype=` (default torch.float64). User callables are
-written in torch and must be traceable by `torch.func` transforms (build
-vectors with `torch.stack`). This package imports neither jax nor ctdirect_tpu.
+Every public entry point (`transcribe`, `discretize`, `solve`,
+`MPCController`, `BatchSolver`) takes an explicit `device=` and `dtype=`
+(default torch.float64). User callables are written in torch and must be
+traceable by `torch.func` transforms (build vectors with `torch.stack`). This
+package imports neither jax nor ctdirect_tpu.
 """
 
 from ctdirect_tpu_torch.model import InitialGuess, OCP, PreOCP, Solution
 from ctdirect_tpu_torch.solver import IPMOptions, solve, solve_docp
-from ctdirect_tpu_torch.transcription import DOCP, transcribe
+from ctdirect_tpu_torch.transcription import (
+    DOCP,
+    Collocation,
+    DirectShooting,
+    discretize,
+    transcribe,
+)
 
 __all__ = [
     "OCP",
@@ -24,6 +31,9 @@ __all__ = [
     "Solution",
     "DOCP",
     "transcribe",
+    "Collocation",
+    "DirectShooting",
+    "discretize",
     "IPMOptions",
     "solve",
     "solve_docp",

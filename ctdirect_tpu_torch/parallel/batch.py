@@ -1,0 +1,97 @@
+"""Batched whole-IPM solves across problem instances (PyTorch port of
+`ctdirect_tpu.parallel.batch`).
+
+Each instance may have its own initial guess, its own constraint right-hand
+sides (e.g. a per-instance initial state x0 through the boundary-constraint
+bounds) and its own variable boxes; the batch axis maps over (z0, cl, cu, zl,
+zu). The solve is `solver/ipm.py::ipm_solve_batched`: one batched IPM loop in
+which converged instances keep their values while the others iterate, so the
+batch completes when the slowest instance does. Every KKT solve of a loop trip
+is one batched call; with `kkt_mode="cr"` on the card that is one launch of
+the CR kernel for the whole batch."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ctdirect_tpu_torch.solver.interface import make_kkt
+from ctdirect_tpu_torch.solver.ipm import BatchStats, IPMOptions, ipm_solve_batched, make_spec
+from ctdirect_tpu_torch.transcription.docp import DOCP
+
+
+class BatchSolver:
+    """Batched solver for one DOCP structure, on one device.
+
+    Call signature: solver(z0_batch, cl_batch, cu_batch, zl_batch, zu_batch)
+    -> IPMResult with a leading batch axis on every field. Bounds default to
+    the DOCP's static bounds broadcast across the batch.
+
+    The KKT operator follows `options.kkt_mode` as `solve` does ("cr" is the
+    cyclic-reduction StructuredKKT; the JAX package's BatchSolver passes no
+    operator for "cr" and so solves it densely). `stats` counts the batched
+    KKT solves, host reads and outer iterations over all calls. `device` and
+    `dtype` must match the DOCP's."""
+
+    def __init__(
+        self,
+        docp: DOCP,
+        options: IPMOptions = IPMOptions(),
+        mesh=None,
+        kkt: Optional[object] = None,
+        *,
+        device,
+        dtype: torch.dtype = torch.float64,
+    ):
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded batched solves (mesh=) are not ported to ctdirect_tpu_torch "
+                "yet (ROADMAP.md, queue 1: sharding)"
+            )
+        device = torch.device(device)
+        if device != docp.device or dtype != docp.dtype:
+            raise ValueError(
+                f"BatchSolver on {device}/{dtype} but the DOCP is on {docp.device}/{docp.dtype}"
+            )
+        self.docp = docp
+        self.options = options
+        self.device, self.dtype = device, dtype
+        self.spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+        self.kkt = make_kkt(docp, options) if kkt is None else kkt
+        self.stats = BatchStats()
+
+    def __call__(self, z0_batch, cl_batch=None, cu_batch=None, zl_batch=None, zu_batch=None):
+        """Every per-instance quantity may vary across the batch: the initial
+        guess, the constraint rhs (cl/cu) and the variable boxes (zl/zu).
+        Unsupplied bounds broadcast from the DOCP's static ones."""
+        docp = self.docp
+        z0 = docp.tensor(z0_batch)
+        B = z0.shape[0]
+
+        def bc(given, default):
+            if given is not None:
+                return docp.tensor(given)
+            default = docp.tensor(default)
+            return default.expand((B,) + default.shape)
+
+        return ipm_solve_batched(
+            docp.nlp_objective,
+            docp.constraints,
+            self.spec,
+            z0,
+            bc(zl_batch, docp._z_lb),
+            bc(zu_batch, docp._z_ub),
+            bc(cl_batch, docp._c_lb),
+            bc(cu_batch, docp._c_ub),
+            options=self.options,
+            kkt=self.kkt,
+            device=self.device,
+            dtype=self.dtype,
+            stats=self.stats,
+        )
+
+
+def make_batch_solver(docp, options=IPMOptions(), mesh=None, kkt=None, *, device,
+                      dtype: torch.dtype = torch.float64) -> BatchSolver:
+    return BatchSolver(docp, options=options, mesh=mesh, kkt=kkt, device=device, dtype=dtype)

@@ -18,7 +18,12 @@ import torch
 from torch.func import vmap
 
 from ctdirect_tpu_torch.solver.ipm import IPMOptions, make_spec
-from ctdirect_tpu_torch.solver.resolve import WarmState, make_resolver, warm_state_from_result
+from ctdirect_tpu_torch.solver.resolve import (
+    WarmState,
+    make_resolver,
+    push_inside,
+    warm_state_from_result,
+)
 from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
 from ctdirect_tpu_torch.transcription.docp import DOCP
 
@@ -92,7 +97,7 @@ class MPCController:
         self.docp = docp
         self.device, self.dtype = device, dtype
         self.shift = shift
-        spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+        spec = self._spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
         # equilibration default OFF on the tick: the warm resolve is mildly
         # conditioned by construction
         self.kkt = StructuredKKT(
@@ -136,7 +141,9 @@ class MPCController:
         return self._tick(states, x0_batch)
 
     def cold_start(self, options: Optional[IPMOptions] = None, init=None) -> WarmState:
-        """One full-IPM solve to seed the warm state (unbatched)."""
+        """One full-IPM solve to seed the warm state (unbatched), moved
+        strictly inside the boxes the tick's resolve uses (see
+        `resolve.push_inside`)."""
         from ctdirect_tpu_torch.solver.interface import _get_solver
 
         docp = self.docp
@@ -144,7 +151,8 @@ class MPCController:
         solver = _get_solver(docp, opts)
         z0 = docp.initial_guess(init)
         res, _post = solver(z0, docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
-        return warm_state_from_result(res)
+        return push_inside(warm_state_from_result(res), self._spec, docp._z_lb, docp._z_ub,
+                           docp._c_lb, docp._c_ub, opts.bound_relax_factor)
 
 
 def broadcast_state(st: WarmState, batch: int) -> WarmState:

@@ -1,6 +1,6 @@
 """Fixture OCP library with known reference objectives (PyTorch port of
-`ctdirect_tpu.problems`; each entry returns (ocp, obj, name, init)). Only
-`double_integrator_minenergy` is ported so far."""
+`ctdirect_tpu.problems`; each entry returns (ocp, obj, name, init)). Ported
+so far: `double_integrator_minenergy`, `cartpole`, `orbit_transfer`."""
 
 from __future__ import annotations
 
@@ -33,4 +33,4 @@ def problem_names():
     return sorted(_REGISTRY)
 
 
-from ctdirect_tpu_torch.problems import basic  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import basic, mpc_fixtures  # noqa: E402,F401

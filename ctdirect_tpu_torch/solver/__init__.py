@@ -1,4 +1,18 @@
-from ctdirect_tpu_torch.solver.ipm import IPMOptions, IPMResult, ipm_solve
+from ctdirect_tpu_torch.solver.ipm import (
+    BatchStats,
+    IPMOptions,
+    IPMResult,
+    ipm_solve,
+    ipm_solve_batched,
+)
 from ctdirect_tpu_torch.solver.interface import solve, solve_docp
 
-__all__ = ["IPMOptions", "IPMResult", "ipm_solve", "solve", "solve_docp"]
+__all__ = [
+    "BatchStats",
+    "IPMOptions",
+    "IPMResult",
+    "ipm_solve",
+    "ipm_solve_batched",
+    "solve",
+    "solve_docp",
+]

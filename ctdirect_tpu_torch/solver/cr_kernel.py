@@ -38,8 +38,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 MAX_WIDTH = 32  # cap on bs + wb (the kernel's per-thread working arrays)
+CAPS = (16, MAX_WIDTH)  # the kernel's instantiations (csrc/cr_solve.cu: launch)
 
 _ENTRY = {torch.float32: "cr_solve_f32", torch.float64: "cr_solve_f64"}
+
+
+def cap(bs: int, wb: int) -> int:
+    """The instantiation (working-array cap) that a chain of width bs + wb
+    launches; raises above MAX_WIDTH."""
+    for c in CAPS:
+        if bs + wb <= c:
+            return c
+    raise ValueError(f"CR kernel: bs + wb = {bs + wb} exceeds the cap {MAX_WIDTH}")
 
 
 def _nvcc() -> str:
@@ -91,12 +101,19 @@ def _load(path: Path) -> ctypes.CDLL:
 
 
 class CRKernel:
-    """Callable wrapper of the CR kernel with a plain-int launch count
-    (`launches` grows by one per kernel launch and nowhere else)."""
+    """Callable wrapper of the CR kernel with plain-int launch counts:
+    `launches` grows by one per kernel launch and nowhere else, and
+    `launches_by_cap` splits the same launches by the instantiation (16 or
+    32) that ran."""
 
     def __init__(self):
         self.launches = 0
+        self.launches_by_cap = dict.fromkeys(CAPS, 0)
         self._lib = None
+
+    def reset_counts(self):
+        self.launches = 0
+        self.launches_by_cap = dict.fromkeys(CAPS, 0)
 
     def library(self, verbose: bool = False):
         """Build (if needed) and load the kernel library; returns the build
@@ -118,8 +135,7 @@ class CRKernel:
             raise TypeError(f"CR kernel: dtype {dtype} (float32 or float64 only)")
         if P < 1 or P & (P - 1):
             raise ValueError(f"CR kernel: chain length {P} is not a power of two")
-        if bs + wb > MAX_WIDTH:
-            raise ValueError(f"CR kernel: bs + wb = {bs + wb} exceeds the cap {MAX_WIDTH}")
+        instantiation = cap(bs, wb)
         shapes = {
             "A": (A, (P, bs, bs, B)),
             "Bp": (Bp, (P, bs, bs, B)),
@@ -151,6 +167,7 @@ class CRKernel:
         if rc != 0:
             raise RuntimeError(f"CR kernel launch failed: cudaError {rc}")
         self.launches += 1
+        self.launches_by_cap[instantiation] += 1
         return X, xb
 
 

@@ -16,28 +16,33 @@ from ctdirect_tpu_torch.solver.ipm import STATUS_MESSAGES, IPMOptions, ipm_solve
 from ctdirect_tpu_torch.transcription.docp import DOCP, transcribe
 
 
+def make_kkt(docp: DOCP, options: IPMOptions):
+    """The KKT operator `options.kkt_mode` asks for: None for "dense" (the
+    solvers default to DenseKKT), a StructuredKKT with the scan solve for
+    "structured" and with the cyclic-reduction solve for "cr"."""
+    if options.kkt_mode == "dense":
+        return None
+    if options.kkt_mode not in ("structured", "cr"):
+        raise ValueError(f"unknown kkt_mode {options.kkt_mode!r}")
+    from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
+
+    sdt = torch.float32 if options.kkt_solve_dtype in ("f32", "float32") else None
+    return StructuredKKT(
+        docp,
+        algorithm="cr" if options.kkt_mode == "cr" else "scan",
+        solve_dtype=sdt,
+        refine=options.kkt_refine if sdt is not None else 0,
+        equilibrate=options.kkt_equilibrate,
+    )
+
+
 def _get_solver(docp: DOCP, options: IPMOptions):
     """run(z0, zl, zu, cl, cu) -> (IPMResult, postprocess tuple) on docp's
     device, cached on the DOCP per options."""
     cache = docp.__dict__.setdefault("_solver_cache", {})
     if options not in cache:
         spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
-        if options.kkt_mode == "dense":
-            kkt = None  # ipm_solve defaults to DenseKKT
-        elif options.kkt_mode in ("structured", "cr"):
-            from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
-
-            algo = "cr" if options.kkt_mode == "cr" else "scan"
-            sdt = torch.float32 if options.kkt_solve_dtype in ("f32", "float32") else None
-            kkt = StructuredKKT(
-                docp,
-                algorithm=algo,
-                solve_dtype=sdt,
-                refine=options.kkt_refine if sdt is not None else 0,
-                equilibrate=options.kkt_equilibrate,
-            )
-        else:
-            raise ValueError(f"unknown kkt_mode {options.kkt_mode!r}")
+        kkt = make_kkt(docp, options)
 
         def run(z0, zl, zu, cl, cu):
             result = ipm_solve(
@@ -97,9 +102,8 @@ def solve(
 ) -> Solution:
     """Transcribe and solve an OCP on `device` ("cpu", "cuda", ...) in `dtype`.
 
-    Defaults mirror the JAX package (grid_size=250, scheme="midpoint"; only
-    "trapeze" is ported so far). Extra keyword args are IPMOptions fields
-    (tol=..., max_iter=..., ...)."""
+    Defaults mirror the JAX package (grid_size=250, scheme="midpoint"). Extra
+    keyword args are IPMOptions fields (tol=..., max_iter=..., ...)."""
     if options is None:
         options = IPMOptions(**opt_kwargs)
     elif opt_kwargs:

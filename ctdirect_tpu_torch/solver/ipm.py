@@ -21,10 +21,12 @@ system re-solved. Monotone Fiacco-McCormick barrier schedule (or the LOQO
 adaptive rule), Ipopt-scaled termination error.
 
 The JAX package runs this as one traced program (`lax.while_loop`/`cond`);
-here it is one instance with Python control flow: every branch reads its
-condition back from the device (`.item()`), and the arithmetic follows the
-JAX package step for step so that a solve lands on the same iterates.
-Derivatives come from `torch.func` (grad, vjp, jvp).
+here `ipm_solve` is one instance with Python control flow: every branch reads
+its condition back from the device (`.item()`), and the arithmetic follows
+the JAX package step for step so that a solve lands on the same iterates.
+`ipm_solve_batched` is the counterpart of `jax.vmap(ipm_solve)`: B instances
+in one masked loop, each on the iterates `ipm_solve` gives it alone.
+Derivatives come from `torch.func` (grad, vjp, jvp, vmap).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.func import grad, jvp, vjp
+from torch.func import grad, jvp, vjp, vmap
 
 from ctdirect_tpu_torch.solver.kkt import DenseKKT
 
@@ -861,4 +863,675 @@ def ipm_solve(
         constraints_violation=viol_final,
         status=status,
         successful=status in (0, 4),
+    )
+
+
+# ----------------------------------------------------------------------------
+# Batched solver: the counterpart of the JAX package's `jax.vmap(ipm_solve)`
+# ----------------------------------------------------------------------------
+
+
+@dataclass
+class BatchStats:
+    """Plain-int counters of batched solves (cumulative over calls)."""
+
+    kkt_solves: int = 0  # batched KKT block solves: one CR kernel launch each on the cr path
+    host_syncs: int = 0  # device->host reads of a batch-wide loop condition
+    iterations: int = 0  # trips of the batch's outer loop
+
+
+class _Prob(NamedTuple):
+    """Per-instance problem data (relaxed, scaled bounds and scale factors)."""
+
+    zl: torch.Tensor
+    zu: torch.Tensor
+    zl_orig: torch.Tensor
+    zu_orig: torch.Tensor
+    sl: torch.Tensor  # slack bounds (scaled cl/cu on inequality rows, 0 elsewhere)
+    su: torch.Tensor
+    rhs_eq: torch.Tensor
+    sf: torch.Tensor  # objective scale
+    sc: torch.Tensor  # (nc,) constraint row scales
+    theta_max: torch.Tensor
+    theta_min: torch.Tensor
+
+
+class _Step(NamedTuple):
+    """Per-instance quantities of one iteration, shared by its stages."""
+
+    mu: torch.Tensor
+    gL: torch.Tensor
+    gU: torch.Tensor
+    sgL: torch.Tensor
+    sgU: torch.Tensor
+    sigma_z: torch.Tensor
+    sigma_s: torch.Tensor
+    Drow: torch.Tensor
+    kdata: object
+    gf: torch.Tensor
+    rbar_z: torch.Tensor
+    rbar_s: torch.Tensor
+    r_p: torch.Tensor
+    rbar_p: torch.Tensor
+    h_scale: torch.Tensor
+    delta_c_reg: torch.Tensor
+
+
+class _LineSearch(NamedTuple):
+    tau: torch.Tensor
+    alpha_max: torch.Tensor
+    theta0: torch.Tensor
+    phi0: torch.Tensor
+    dphi: torch.Tensor
+
+
+def _sel(mask, new, old):
+    """Per-instance select along the leading batch axis (a `lax.cond` or a
+    while-loop carry under `jax.vmap`): instances outside `mask` keep `old`
+    bit for bit."""
+    return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
+
+
+def ipm_solve_batched(
+    f: Callable,
+    c: Callable,
+    spec: NLPSpec,
+    z0,
+    zl,
+    zu,
+    cl,
+    cu,
+    options: IPMOptions = IPMOptions(),
+    kkt=None,
+    *,
+    device,
+    dtype: torch.dtype = torch.float64,
+    stats: Optional[BatchStats] = None,
+) -> IPMResult:
+    """Solve B instances of one NLP structure at once: z0, zl, zu (B, nz) and
+    cl, cu (B, nc), one instance per row. Returns an IPMResult whose every
+    field has a leading batch axis (iterations, status and successful are
+    (B,) tensors).
+
+    Each instance follows exactly the iterates `ipm_solve` gives it alone:
+    its own scaling, barrier parameter, regularization, filter and counters.
+    A loop runs another trip while ANY instance still needs one; instances
+    that finished, or that are outside a branch, keep their values
+    (`torch.where`), as under `jax.vmap` of the JAX solver. Derivatives and
+    the KKT operator run through `torch.func.vmap` of the per-instance
+    functions, so each KKT solve is ONE batched call (one launch of the CR
+    kernel for the whole batch with a CUDA `StructuredKKT(algorithm="cr")`).
+    `stats` (if given) counts the batched KKT solves, the host reads of loop
+    conditions and the outer iterations."""
+    opts = options
+    nz, nc = spec.nz, spec.nc
+    stats = BatchStats() if stats is None else stats
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    def mask(x):
+        return torch.as_tensor(x, dtype=torch.bool, device=device)
+
+    def host(flag) -> bool:
+        stats.host_syncs += 1
+        return bool(flag)
+
+    Z0, ZL, ZU, CL, CU = (tensor(x) for x in (z0, zl, zu, cl, cu))
+    B = Z0.shape[0]
+    eq = mask(spec.eq_mask)
+    ineq = ~eq
+    zlm = mask(spec.zl_mask)
+    zum = mask(spec.zu_mask)
+    slm = mask(spec.sl_mask)
+    sum_ = mask(spec.su_mask)
+    n_duals = float(nc + nz)
+    n_compl = int(
+        np.sum(spec.zl_mask) + np.sum(spec.zu_mask) + np.sum(spec.sl_mask) + np.sum(spec.su_mask)
+    )
+    adaptive = opts.mu_strategy == "adaptive" and n_compl > 0
+    if kkt is None:
+        kkt = DenseKKT(f, c, nz, nc)
+    kap = opts.kappa_push
+
+    # ---- per-instance functions (each vmapped over the batch below) ----
+    def f_s(pb, z):
+        return pb.sf * f(z)
+
+    def c_s(pb, z):
+        return pb.sc * c(z)
+
+    def grad_f(pb, z):
+        return grad(lambda zz: f_s(pb, zz))(z)
+
+    def vjp_c(pb, z, lam):
+        return vjp(lambda zz: c_s(pb, zz), z)[1](lam)[0]
+
+    def lag_hvp(pb, z, lam, v):
+        g = grad(lambda z3: f_s(pb, z3) + torch.dot(lam, c_s(pb, z3)))
+        return jvp(g, (z,), (v,))[1]
+
+    def primal_residual(pb, z, s):
+        return c_s(pb, z) - pb.rhs_eq - torch.where(ineq, s, 0.0)
+
+    def push_interior(x, lb, ub, lmask, umask):
+        lo = torch.where(lmask, lb, -torch.inf)
+        hi = torch.where(umask, ub, torch.inf)
+        width = torch.where(lmask & umask, hi - lo, torch.inf)
+        pL = torch.where(
+            lmask, torch.minimum(kap * torch.clamp(torch.abs(lo), min=1.0), 0.5 * width), 0.0
+        )
+        pU = torch.where(
+            umask, torch.minimum(kap * torch.clamp(torch.abs(hi), min=1.0), 0.5 * width), 0.0
+        )
+        x = torch.where(lmask, torch.maximum(x, lo + pL), x)
+        return torch.where(umask, torch.minimum(x, hi - pU), x)
+
+    def kkt_error_pair(pb, z, s, lam, wL, wU, yL, yU, mu):
+        gL = _safe_gap(z, pb.zl, zlm)
+        gU = _safe_gap(pb.zu, z, zum)
+        sgL = _safe_gap(s, pb.sl, slm)
+        sgU = _safe_gap(pb.su, s, sum_)
+        r_d = grad_f(pb, z) + vjp_c(pb, z, lam) - wL + wU
+        r_s = torch.where(ineq, -lam - yL + yU, 0.0)
+        r_p = primal_residual(pb, z, s)
+        prods = torch.cat(
+            [
+                torch.where(zlm, wL * gL, 0.0),
+                torch.where(zum, wU * gU, 0.0),
+                torch.where(slm, yL * sgL, 0.0),
+                torch.where(sum_, yU * sgU, 0.0),
+            ]
+        )
+        masks = torch.cat([zlm, zum, slm, sum_])
+        bound_dual_sum = torch.sum(wL + wU) + torch.sum(yL + yU)
+        dual_sum = torch.sum(torch.abs(lam)) + bound_dual_sum
+        s_d = torch.clamp(dual_sum / n_duals, min=opts.s_max) / opts.s_max
+        s_c = (
+            torch.clamp(bound_dual_sum / max(1.0, float(nz + nc)), min=opts.s_max)
+            / opts.s_max
+        )
+        e_d = torch.amax(torch.abs(torch.cat([r_d, r_s]))) / s_d
+        e_p = _amax(torch.abs(r_p), 0.0)
+        e_c0 = _amax(torch.abs(prods), 0.0) / s_c
+        e_cmu = _amax(torch.abs(torch.where(masks, prods - mu, 0.0)), 0.0) / s_c
+        base = torch.maximum(e_d, e_p)
+        return torch.maximum(base, e_cmu), torch.maximum(base, e_c0)
+
+    def barrier_phi(pb, z, s):
+        barr = (
+            torch.sum(torch.where(zlm, torch.log(_safe_gap(z, pb.zl, zlm)), 0.0))
+            + torch.sum(torch.where(zum, torch.log(_safe_gap(pb.zu, z, zum)), 0.0))
+            + torch.sum(torch.where(slm, torch.log(_safe_gap(s, pb.sl, slm)), 0.0))
+            + torch.sum(torch.where(sum_, torch.log(_safe_gap(pb.su, s, sum_)), 0.0))
+        )
+        return f_s(pb, z), barr
+
+    def fresh_filter(pb):
+        th = torch.full((opts.filter_size,), torch.inf, dtype=dtype, device=device)
+        th = torch.where(torch.arange(opts.filter_size, device=device) == 0, pb.theta_max, th)
+        ph = torch.full((opts.filter_size,), -torch.inf, dtype=dtype, device=device)
+        return th, ph
+
+    def setup(z0, zl, zu, cl, cu):
+        """Bound relaxation, gradient scaling and the interior initial point."""
+        zl_orig, zu_orig = zl, zu
+        if opts.bound_relax_factor > 0:
+            brf = opts.bound_relax_factor
+
+            def _relax(lo, hi, row_eq=None):
+                rl = lo - brf * torch.clamp(torch.abs(lo), min=1.0)
+                rh = hi + brf * torch.clamp(torch.abs(hi), min=1.0)
+                if row_eq is not None:
+                    rl = torch.where(row_eq, lo, rl)
+                    rh = torch.where(row_eq, hi, rh)
+                return rl, rh
+
+            zl, zu = _relax(zl, zu)
+            cl, cu = _relax(cl, cu, eq)
+        if opts.grad_scaling:
+            g0 = grad(f)(z0)
+            sf = torch.clamp(
+                opts.scaling_max_grad / torch.clamp(torch.amax(torch.abs(g0)), min=1e-8), max=1.0
+            )
+            sc = torch.clamp(
+                opts.scaling_max_grad / torch.clamp(kkt.row_norms(z0), min=1e-8), max=1.0
+            )
+            cl, cu = sc * cl, sc * cu
+        else:
+            sf = torch.ones((), dtype=dtype, device=device)
+            sc = torch.ones((nc,), dtype=dtype, device=device)
+        sl = torch.where(ineq, cl, 0.0)
+        su = torch.where(ineq, cu, 0.0)
+        # the filter bounds depend on the initial point: placeholders until then
+        pb = _Prob(zl, zu, zl_orig, zu_orig, sl, su, torch.where(eq, cl, 0.0), sf, sc,
+                   theta_max=sf, theta_min=sf)
+        z_init = push_interior(z0, zl, zu, zlm, zum)
+        s_init = torch.where(ineq, push_interior(c_s(pb, z_init), sl, su, slm, sum_), 0.0)
+        theta_at_init = torch.sum(torch.abs(primal_residual(pb, z_init, s_init)))
+        pb = pb._replace(
+            theta_max=1e4 * torch.clamp(theta_at_init, min=1.0),
+            theta_min=1e-4 * torch.clamp(theta_at_init, min=1.0),
+        )
+        mu0 = tensor(opts.mu_init)
+        wL0 = torch.where(zlm, mu0 / _safe_gap(z_init, zl, zlm), 0.0)
+        wU0 = torch.where(zum, mu0 / _safe_gap(zu, z_init, zum), 0.0)
+        yL0 = torch.where(slm, mu0 / _safe_gap(s_init, sl, slm), 0.0)
+        yU0 = torch.where(sum_, mu0 / _safe_gap(su, s_init, sum_), 0.0)
+        g_init = grad_f(pb, z_init) - wL0 + wU0
+        return pb, z_init, s_init, wL0, wU0, yL0, yU0, g_init
+
+    def init_carry(pb, z, s, lam_ls, wL, wU, yL, yU):
+        lam0 = torch.zeros((nc,), dtype=dtype, device=device)
+        if lam_ls is not None:
+            ok = (torch.amax(torch.abs(lam_ls)) <= opts.lambda_init_max) & torch.isfinite(
+                lam_ls
+            ).all()
+            lam0 = torch.where(ok, lam_ls, lam0)
+        _, err = kkt_error_pair(pb, z, s, lam0, wL, wU, yL, yU, 0.0)
+        th, ph = fresh_filter(pb)
+        zero_i = torch.zeros((), dtype=torch.long, device=device)
+        done = err <= opts.tol
+        return _Carry(
+            z=z, s=s, lam=lam0, wL=wL, wU=wU, yL=yL, yU=yU, mu=tensor(opts.mu_init),
+            filt_theta=th, filt_phi=ph, filt_n=zero_i + 1, delta_w_last=tensor(0.0),
+            it=zero_i, done=done, status=torch.where(done, 0, 1), kkt_err=err,
+            soft_fails=zero_i,
+        )
+
+    def prologue(pb, cr):
+        z, s, lam, wL, wU, yL, yU = cr[:7]
+        mu = cr.mu
+        gL = _safe_gap(z, pb.zl, zlm)
+        gU = _safe_gap(pb.zu, z, zum)
+        sgL = _safe_gap(s, pb.sl, slm)
+        sgU = _safe_gap(pb.su, s, sum_)
+        if adaptive:
+            prods = torch.cat(
+                [
+                    torch.where(zlm, wL * gL, torch.nan),
+                    torch.where(zum, wU * gU, torch.nan),
+                    torch.where(slm, yL * sgL, torch.nan),
+                    torch.where(sum_, yU * sgU, torch.nan),
+                ]
+            )
+            avg = torch.nansum(prods) / n_compl
+            xi = torch.amin(torch.where(torch.isnan(prods), torch.inf, prods)) / torch.clamp(
+                avg, min=1e-300
+            )
+            sigma_c = 0.1 * torch.clamp(0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-12), max=2.0) ** 3
+            mu = _clip(sigma_c * avg, torch.clamp(1e-2 * mu, min=opts.mu_min), tensor(opts.mu_init))
+        sigma_z = torch.where(zlm, wL / gL, 0.0) + torch.where(zum, wU / gU, 0.0)
+        sigma_s = torch.where(slm, yL / sgL, 0.0) + torch.where(sum_, yU / sgU, 0.0)
+        sigma_s = torch.where(ineq, torch.clamp(sigma_s, min=1e-12), 1.0)
+        kdata = kkt.prepare(z, lam, pb.sf, pb.sc)
+        gf = grad_f(pb, z)
+        rbar_z = (
+            gf
+            + vjp_c(pb, z, lam)
+            - torch.where(zlm, mu / gL, 0.0)
+            + torch.where(zum, mu / gU, 0.0)
+        )
+        rbar_s = torch.where(
+            ineq,
+            -lam - torch.where(slm, mu / sgL, 0.0) + torch.where(sum_, mu / sgU, 0.0),
+            0.0,
+        )
+        r_p = primal_residual(pb, z, s)
+        return _Step(
+            mu=mu, gL=gL, gU=gU, sgL=sgL, sgU=sgU, sigma_z=sigma_z, sigma_s=sigma_s,
+            Drow=torch.where(ineq, 1.0 / sigma_s, 0.0), kdata=kdata, gf=gf, rbar_z=rbar_z,
+            rbar_s=rbar_s, r_p=r_p, rbar_p=r_p + torch.where(ineq, rbar_s / sigma_s, 0.0),
+            h_scale=kkt.diag_scale(kdata),
+            delta_c_reg=torch.clamp(1e-8 * mu**0.25, min=opts.delta_c),
+        )
+
+    def reg_solve(pb, cr, sp, delta_w, delta_c):
+        dz, dlam = kkt.solve(sp.kdata, sp.sigma_z, sp.Drow, delta_w, delta_c, sp.rbar_z, sp.rbar_p)
+        ds = torch.where(ineq, (dlam - sp.rbar_s) / sp.sigma_s, 0.0)
+        curv = (
+            dz @ lag_hvp(pb, cr.z, cr.lam, dz)
+            + (sp.sigma_z + delta_w) @ (dz * dz)
+            + ds @ (sp.sigma_s * ds)
+        )
+        nrm2 = dz @ dz + ds @ ds
+        ok = (
+            torch.isfinite(dz).all()
+            & torch.isfinite(dlam).all()
+            & (curv >= opts.curvature_frac * nrm2)
+        )
+        return dz, dlam, ds, ok
+
+    def line_search_setup(pb, cr, sp, dz, ds):
+        mu = sp.mu
+        tau = torch.clamp(1.0 - mu, min=opts.tau_min)
+        alpha_max = torch.minimum(
+            _max_step_to_boundary(cr.z, dz, pb.zl, pb.zu, zlm, zum, tau),
+            _max_step_to_boundary(cr.s, ds, pb.sl, pb.su, slm, sum_, tau),
+        )
+        f0, b0 = barrier_phi(pb, cr.z, cr.s)
+        dphi = (
+            sp.gf @ dz
+            - torch.sum(torch.where(zlm, mu / sp.gL * dz, 0.0))
+            + torch.sum(torch.where(zum, mu / sp.gU * dz, 0.0))
+            - torch.sum(torch.where(slm, mu / sp.sgL * ds, 0.0))
+            + torch.sum(torch.where(sum_, mu / sp.sgU * ds, 0.0))
+        )
+        return _LineSearch(tau, alpha_max, torch.sum(torch.abs(sp.r_p)), f0 - mu * b0, dphi)
+
+    def trial(pb, cr, sp, ls, alpha, dz, ds):
+        """(accepted, is_ftype, theta) of the trial point at step alpha."""
+        zt, st = cr.z + alpha * dz, cr.s + alpha * ds
+        ft, bt = barrier_phi(pb, zt, st)
+        phi_t = ft - sp.mu * bt
+        theta_t = torch.sum(torch.abs(primal_residual(pb, zt, st)))
+        theta0, phi0, dphi = ls.theta0, ls.phi0, ls.dphi
+        not_blocked = ~torch.any((theta_t >= cr.filt_theta) & (phi_t >= cr.filt_phi))
+        switching = (dphi < 0) & (
+            alpha * (-dphi) ** opts.s_phi > opts.delta_switch * theta0**opts.s_theta
+        )
+        armijo = phi_t <= phi0 + opts.eta_phi * alpha * dphi
+        suff = (theta_t <= (1.0 - opts.gamma_theta) * theta0) | (
+            phi_t <= phi0 - opts.gamma_phi * theta0
+        )
+        ok_f = switching & armijo
+        ok = torch.where(theta0 <= pb.theta_min, torch.where(switching, ok_f, suff), ok_f | suff)
+        ok = ok & not_blocked & torch.isfinite(phi_t) & torch.isfinite(theta_t)
+        return ok, ok_f, theta_t
+
+    def soc(pb, cr, sp, ls, dz, ds, delta_w, delta_c):
+        """Second-order correction: re-solve with rhs alpha*r_p + r_p(trial)."""
+        a = ls.alpha_max
+        rp_trial = primal_residual(pb, cr.z + a * dz, cr.s + a * ds)
+        rbar_p_soc = (a * sp.r_p + rp_trial) + torch.where(ineq, sp.rbar_s / sp.sigma_s, 0.0)
+        dz_c, dlam_c = kkt.solve(
+            sp.kdata, sp.sigma_z, sp.Drow, delta_w, delta_c, sp.rbar_z, rbar_p_soc
+        )
+        ds_c = torch.where(ineq, (dlam_c - sp.rbar_s) / sp.sigma_s, 0.0)
+        a_soc = torch.minimum(
+            _max_step_to_boundary(cr.z, dz_c, pb.zl, pb.zu, zlm, zum, ls.tau),
+            _max_step_to_boundary(cr.s, ds_c, pb.sl, pb.su, slm, sum_, ls.tau),
+        )
+        ok_raw, ftype, th_soc = trial(pb, cr, sp, ls, a_soc, dz_c, ds_c)
+        valid = ok_raw & torch.isfinite(dz_c).all() & (th_soc <= opts.kappa_soc * ls.theta0)
+        return dz_c, dlam_c, ds_c, a_soc, valid, ftype
+
+    def advance(cr, sp, ls, alpha, dz, ds, dlam):
+        """Primal step along the selected direction, full dual FTB step."""
+        z, s, lam, wL, wU, yL, yU = cr[:7]
+        mu, tau = sp.mu, ls.tau
+        dwL = torch.where(zlm, -(wL / sp.gL) * dz - wL + mu / sp.gL, 0.0)
+        dwU = torch.where(zum, (wU / sp.gU) * dz - wU + mu / sp.gU, 0.0)
+        dyL = torch.where(slm, -(yL / sp.sgL) * ds - yL + mu / sp.sgL, 0.0)
+        dyU = torch.where(sum_, (yU / sp.sgU) * ds - yU + mu / sp.sgU, 0.0)
+        alpha_dual = torch.minimum(
+            torch.minimum(
+                _dual_step_to_boundary(wL, dwL, zlm, tau), _dual_step_to_boundary(wU, dwU, zum, tau)
+            ),
+            torch.minimum(
+                _dual_step_to_boundary(yL, dyL, slm, tau), _dual_step_to_boundary(yU, dyU, sum_, tau)
+            ),
+        )
+        return (
+            z + alpha * dz,
+            s + alpha * ds,
+            lam + alpha * dlam,
+            torch.clamp(wL + alpha_dual * dwL, min=0.0),
+            torch.clamp(wU + alpha_dual * dwU, min=0.0),
+            torch.clamp(yL + alpha_dual * dyL, min=0.0),
+            torch.clamp(yU + alpha_dual * dyU, min=0.0),
+        )
+
+    def restore(pb, cr, sp, ls):
+        """Feasibility restoration (lite): damped Gauss-Newton step on the
+        constraint violation, slacks reset to the projection of c(z)."""
+        z = cr.z
+        s_r = torch.where(ineq, push_interior(c_s(pb, z), pb.sl, pb.su, slm, sum_), 0.0)
+        r_r = primal_residual(pb, z, s_r)
+        dz_gn, _ = kkt.solve(
+            kkt.gauss_newton_data(sp.kdata),
+            torch.zeros((nz,), dtype=dtype, device=device),
+            torch.ones((nc,), dtype=dtype, device=device),
+            tensor(1e-8),
+            tensor(0.0),
+            torch.zeros((nz,), dtype=dtype, device=device),
+            r_r,
+        )
+        dz_gn = torch.where(torch.isfinite(dz_gn), dz_gn, 0.0)
+        a_r = _max_step_to_boundary(z, dz_gn, pb.zl, pb.zu, zlm, zum, ls.tau)
+        cand = a_r * 0.5 ** torch.arange(8, dtype=dtype, device=device)
+        ths = torch.stack(
+            [torch.sum(torch.abs(primal_residual(pb, z + cand[k] * dz_gn, s_r))) for k in range(8)]
+        )
+        best = torch.arange(8, device=device) == torch.argmin(ths)
+        z_r = z + torch.sum(torch.where(best, cand, 0.0)) * dz_gn
+        s_rr = torch.where(ineq, push_interior(c_s(pb, z_r), pb.sl, pb.su, slm, sum_), 0.0)
+        progressed = torch.sum(torch.where(best, ths, 0.0)) <= (1.0 - 1e-4) * ls.theta0
+        return z_r, s_rr, torch.zeros_like(cr.lam), progressed
+
+    def clamp_duals(pb, mu, z, s, wL, wU, yL, yU):
+        """Ipopt's kappa_Sigma safeguard: bound duals consistent with mu."""
+
+        def one(wv, gap, mask_):
+            return torch.where(mask_, _clip(wv, mu / (1e10 * gap), 1e10 * mu / gap), 0.0)
+
+        return (
+            one(wL, _safe_gap(z, pb.zl, zlm), zlm),
+            one(wU, _safe_gap(pb.zu, z, zum), zum),
+            one(yL, _safe_gap(s, pb.sl, slm), slm),
+            one(yU, _safe_gap(pb.su, s, sum_), sum_),
+        )
+
+    def refresh(pb, z, lam, wL, wU):
+        """Dual refresh (Ipopt recalc_y) of the equality multipliers, kept only
+        if it halves the dual residual."""
+        g_n = grad_f(pb, z) - wL + wU
+        lam_ls = kkt.lsq_lambda(z, g_n, pb.sf, pb.sc, Drow=ineq.to(dtype))
+        lam_ls = torch.where(eq, lam_ls, lam)
+
+        def e_d(lam_try):
+            return torch.amax(torch.abs(g_n + vjp_c(pb, z, lam_try)))
+
+        ok = (
+            torch.isfinite(lam_ls).all()
+            & (torch.amax(torch.abs(lam_ls)) < 1e8)
+            & (e_d(lam_ls) < 0.5 * e_d(lam))
+        )
+        return torch.where(ok, lam_ls, lam)
+
+    def exit_violation(pb, z, s):
+        return _amax(torch.abs(primal_residual(pb, z, s) / pb.sc), 0.0)
+
+    v_setup, v_prologue = vmap(setup), vmap(prologue)
+    v_reg_solve, v_ls_setup, v_trial = vmap(reg_solve), vmap(line_search_setup), vmap(trial)
+    v_soc, v_advance, v_restore = vmap(soc), vmap(advance), vmap(restore)
+    v_clamp, v_refresh, v_kkt_error = vmap(clamp_duals), vmap(refresh), vmap(kkt_error_pair)
+    v_fresh_filter = vmap(fresh_filter)
+
+    # ---- one IPM iteration for the whole batch; `active` marks the
+    # instances whose result is kept ----
+    def step(cr: _Carry, active) -> _Carry:
+        sp = v_prologue(PB, cr)
+        mu = sp.mu
+        zeros_b = torch.zeros((B,), dtype=dtype, device=device)
+        false_b = torch.zeros((B,), dtype=torch.bool, device=device)
+
+        # regularization ladder: trial 0 unregularized, then the decayed last
+        # value (or delta_w_init on the first-ever correction), escalating by 8
+        # (100 on the first-ever correction)
+        never_used = cr.delta_w_last == 0.0
+        first = torch.where(
+            never_used,
+            opts.delta_w_init * sp.h_scale,
+            torch.maximum(1e-20 * sp.h_scale, cr.delta_w_last / 3.0),
+        )
+        grow = torch.where(never_used, 100.0, 8.0)
+        delta_w, trials = zeros_b, torch.zeros((B,), dtype=torch.long, device=device)
+        dz = torch.zeros((B, nz), dtype=dtype, device=device)
+        dlam = torch.zeros((B, nc), dtype=dtype, device=device)
+        ds, solve_ok, run = torch.zeros_like(dlam), false_b, active
+        while True:
+            new_dw = torch.where(trials == 0, 0.0, torch.where(trials == 1, first, delta_w * grow))
+            new_dc = torch.where(
+                trials == 0, opts.delta_c, torch.maximum(sp.delta_c_reg, 1e-8 * new_dw)
+            )
+            stats.kkt_solves += 1
+            dz_t, dlam_t, ds_t, ok_t = v_reg_solve(PB, cr, sp, new_dw, new_dc)
+            dz, dlam, ds = _sel(run, dz_t, dz), _sel(run, dlam_t, dlam), _sel(run, ds_t, ds)
+            solve_ok = torch.where(run, ok_t, solve_ok)
+            delta_w = torch.where(run, new_dw, delta_w)
+            trials = torch.where(run, trials + 1, trials)
+            run = run & ~solve_ok & (trials <= opts.max_reg_trials)
+            if not host(run.any()):
+                break
+        delta_w_last = torch.where(delta_w > 0, delta_w, cr.delta_w_last)
+
+        # filter line search: first trial at alpha_max, SOC on rejection,
+        # then backtracking from alpha_max / 2
+        ls = v_ls_setup(PB, cr, sp, dz, ds)
+        ok_1, ftype_1, th_1 = v_trial(PB, cr, sp, ls, ls.alpha_max, dz, ds)
+        delta_c_used = torch.where(
+            delta_w > 0, torch.maximum(sp.delta_c_reg, 1e-8 * delta_w), opts.delta_c
+        )
+        soc_wanted = ~ok_1 & (th_1 >= ls.theta0)
+        dz_c, dlam_c, ds_c = torch.zeros_like(dz), torch.zeros_like(dlam), torch.zeros_like(ds)
+        a_soc, soc_valid, ftype_soc = zeros_b, false_b, false_b
+        if host((active & soc_wanted).any()):
+            stats.kkt_solves += 1
+            dz_c, dlam_c, ds_c, a_soc, valid, ftype_soc = v_soc(
+                PB, cr, sp, ls, dz, ds, delta_w, delta_c_used
+            )
+            soc_valid = soc_wanted & valid
+
+        alpha_bt = ls.alpha_max * 0.5
+        ls_it = torch.zeros((B,), dtype=torch.long, device=device)
+        ok_bt, ftype_bt = ok_1 | soc_valid, false_b
+        run = active & ~ok_bt & (opts.max_ls > 0)
+        while host(run.any()):
+            ok_t, ftype_t, _ = v_trial(PB, cr, sp, ls, alpha_bt, dz, ds)
+            alpha_bt = torch.where(run & ~ok_t, alpha_bt * 0.5, alpha_bt)
+            ok_bt = torch.where(run, ok_t, ok_bt)
+            ftype_bt = torch.where(run, ftype_t, ftype_bt)
+            ls_it = torch.where(run, ls_it + 1, ls_it)
+            run = run & ~ok_bt & (ls_it < opts.max_ls)
+
+        use_soc = soc_valid & ~ok_1
+        accepted = ok_1 | soc_valid | ok_bt
+        alpha = torch.where(ok_1, ls.alpha_max, torch.where(use_soc, a_soc, alpha_bt))
+        alpha = torch.where(accepted, alpha, ls.alpha_max * (0.5**opts.max_ls))
+        is_ftype = torch.where(ok_1, ftype_1, torch.where(use_soc, ftype_soc, ftype_bt))
+        dz_f, ds_f, dlam_f = _sel(use_soc, dz_c, dz), _sel(use_soc, ds_c, ds), _sel(use_soc, dlam_c, dlam)
+
+        # augment the filter on h-type accepted steps
+        add = (accepted & ~is_ftype)[:, None] & (
+            torch.arange(opts.filter_size, device=device)[None, :]
+            == (cr.filt_n % opts.filter_size)[:, None]
+        )
+        filt_th = torch.where(add, ((1.0 - opts.gamma_theta) * ls.theta0)[:, None], cr.filt_theta)
+        filt_ph = torch.where(add, (ls.phi0 - opts.gamma_phi * ls.theta0)[:, None], cr.filt_phi)
+        filt_n = torch.where(accepted & ~is_ftype, cr.filt_n + 1, cr.filt_n)
+
+        z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n = v_advance(cr, sp, ls, alpha, dz_f, ds_f, dlam_f)
+
+        did_restore = ~accepted
+        resto_progress = false_b
+        if host((active & did_restore).any()):
+            stats.kkt_solves += 1
+            z_r, s_r, lam_r, progressed = v_restore(PB, cr, sp, ls)
+            z_n, s_n, lam_n = _sel(did_restore, z_r, z_n), _sel(did_restore, s_r, s_n), _sel(
+                did_restore, lam_r, lam_n
+            )
+            resto_progress = did_restore & progressed
+        soft_fails = torch.where(
+            accepted & solve_ok,
+            0,
+            torch.where(resto_progress, cr.soft_fails, cr.soft_fails + 1),
+        )
+        wL_n, wU_n, yL_n, yU_n = v_clamp(PB, mu, z_n, s_n, wL_n, wU_n, yL_n, yU_n)
+
+        if opts.recalc_lam and nc > 0:
+            want = (
+                accepted & (alpha <= opts.recalc_lam_alpha) & (ls.theta0 <= opts.recalc_lam_feas_tol)
+            )
+            if host((active & want).any()):
+                stats.kkt_solves += 1
+                lam_n = _sel(want, v_refresh(PB, z_n, lam_n, wL_n, wU_n), lam_n)
+
+        err_mu, err_0 = v_kkt_error(PB, z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n, mu)
+        # a non-finite trial point is a failed iteration: revert
+        bad = ~torch.isfinite(err_0)
+        z_n, s_n, lam_n = _sel(bad, cr.z, z_n), _sel(bad, cr.s, s_n), _sel(bad, cr.lam, lam_n)
+        wL_n, wU_n = _sel(bad, cr.wL, wL_n), _sel(bad, cr.wU, wU_n)
+        yL_n, yU_n = _sel(bad, cr.yL, yL_n), _sel(bad, cr.yU, yU_n)
+        err_0 = torch.where(bad, cr.kkt_err, err_0)
+        err_mu = torch.where(bad, torch.inf, err_mu)
+        soft_fails = torch.where(bad, cr.soft_fails + 1, soft_fails)
+
+        if adaptive:
+            mu_next, mu_changed = mu, false_b
+        else:
+            mu_next = torch.where(
+                err_mu <= opts.kappa_eps * mu,
+                torch.clamp(torch.minimum(opts.kappa_mu * mu, mu**opts.theta_mu), min=opts.mu_min),
+                mu,
+            )
+            mu_next = torch.clamp(mu_next, min=opts.mu_min)
+            mu_changed = mu_next < mu
+        # the filter belongs to one barrier subproblem
+        reset = mu_changed | did_restore
+        fresh_th, fresh_ph = v_fresh_filter(PB)
+        filt_th, filt_ph = _sel(reset, fresh_th, filt_th), _sel(reset, fresh_ph, filt_ph)
+        filt_n = torch.where(reset, 1, filt_n)
+
+        converged = err_0 <= opts.tol
+        diverged = ~torch.isfinite(err_0) | (torch.amax(torch.abs(z_n), dim=1) > 1e20)
+        stalled = soft_fails >= opts.max_soft_fail
+        status = torch.where(converged, 0, torch.where(diverged, 3, torch.where(stalled, 2, 1)))
+        return _Carry(
+            z=z_n, s=s_n, lam=lam_n, wL=wL_n, wU=wU_n, yL=yL_n, yU=yU_n, mu=mu_next,
+            filt_theta=filt_th, filt_phi=filt_ph, filt_n=filt_n, delta_w_last=delta_w_last,
+            it=cr.it + 1, done=converged | diverged | stalled, status=status, kkt_err=err_0,
+            soft_fails=soft_fails,
+        )
+
+    # ---- set-up, multiplier init, outer loop ----
+    PB, z_init, s_init, wL0, wU0, yL0, yU0, g_init = v_setup(Z0, ZL, ZU, CL, CU)
+    lam_ls = None
+    if opts.lsq_lambda_init and nc > 0:
+        stats.kkt_solves += 1
+        lam_ls = vmap(kkt.lsq_lambda)(z_init, g_init, PB.sf, PB.sc)
+    carry = vmap(init_carry, in_dims=(0, 0, 0, None if lam_ls is None else 0, 0, 0, 0, 0))(
+        PB, z_init, s_init, lam_ls, wL0, wU0, yL0, yU0
+    )
+
+    if opts.max_iter > 0:
+        while True:
+            active = ~carry.done & (carry.it < opts.max_iter)
+            if not host(active.any()):
+                break
+            new = step(carry, active)
+            carry = _Carry(*(_sel(active, a, b) for a, b in zip(new, carry)))
+            stats.iterations += 1
+
+    status = torch.where(carry.done, carry.status, 1)
+    status = torch.where(
+        (status != 0) & (status != 3) & (carry.kkt_err <= opts.acceptable_tol), 4, status
+    )
+    if opts.max_iter == 0:
+        status = torch.zeros_like(status)
+    z_out = torch.clamp(carry.z, PB.zl_orig, PB.zu_orig)
+    return IPMResult(
+        z=z_out,
+        lam=carry.lam * PB.sc / PB.sf[:, None],
+        zL=carry.wL / PB.sf[:, None],
+        zU=carry.wU / PB.sf[:, None],
+        s=carry.s,
+        yL=carry.yL,
+        yU=carry.yU,
+        objective=vmap(f)(z_out),
+        iterations=carry.it,
+        kkt_error=carry.kkt_err,
+        constraints_violation=vmap(exit_violation)(PB, carry.z, carry.s),
+        status=status,
+        successful=(status == 0) | (status == 4),
     )

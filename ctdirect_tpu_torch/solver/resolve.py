@@ -47,6 +47,35 @@ def warm_state_from_result(res) -> WarmState:
     )
 
 
+def push_inside(st: WarmState, spec: NLPSpec, zl, zu, cl, cu, margin: float) -> WarmState:
+    """Move a warm state strictly inside the resolve's boxes: each finite bound
+    b keeps z (and each inequality row's slack) at least margin * max(1, |b|)
+    away, and at most half the box width.
+
+    The full IPM relaxes every bound by bound_relax_factor * max(1, |b|)
+    internally and projects its final z back onto the original box, so an
+    active bound holds z EXACTLY; the resolve's barrier terms mu/gap are then
+    infinite and the first tick turns the whole state into NaN (the JAX
+    package's MPCController.cold_start hands the resolve such a state).
+    margin = the cold solve's bound_relax_factor undoes exactly that move."""
+
+    def push(x, lo, hi, lmask, umask):
+        lmask = torch.as_tensor(lmask, device=x.device)
+        umask = torch.as_tensor(umask, device=x.device)
+        lo = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
+        hi = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
+        width = torch.where(lmask & umask, hi - lo, torch.inf)
+        pL = torch.minimum(margin * torch.clamp(torch.abs(lo), min=1.0), 0.5 * width)
+        pU = torch.minimum(margin * torch.clamp(torch.abs(hi), min=1.0), 0.5 * width)
+        x = torch.where(lmask, torch.maximum(x, lo + pL), x)
+        return torch.where(umask, torch.minimum(x, hi - pU), x)
+
+    return st._replace(
+        z=push(st.z, zl, zu, spec.zl_mask, spec.zu_mask),
+        s=push(st.s, cl, cu, spec.sl_mask, spec.su_mask),
+    )
+
+
 def warm_state_from_numpy(arrays, device, dtype: torch.dtype = torch.float64) -> WarmState:
     """A WarmState from host arrays: any object with the fields z, s, lam, wL,
     wU, yL, yU (e.g. the JAX package's WarmState, or a mapping with those

@@ -420,6 +420,17 @@ class DOCP:
             return np.vstack([step_cols, step_cols[-1:]])
         return step_cols
 
+    def control_col_indices(self) -> np.ndarray:
+        """Flat z-indices of every control entry (all steps, all sub-controls,
+        plus the tail node control for u-at-nodes schemes) — e.g. to batch
+        per-instance actuator limits through zl/zu."""
+        cols = (
+            np.arange(self.N)[:, None] * self.bw + self.n + np.arange(self.cs * self.m)[None, :]
+        ).ravel()
+        if self.scheme.u_at_nodes:
+            cols = np.concatenate([cols, self.N * self.bw + self.n + np.arange(self.m)])
+        return cols
+
     # ------------------------------------------------------------------
     # solution building
     # ------------------------------------------------------------------
@@ -517,8 +528,7 @@ def transcribe(
 ) -> DOCP:
     """Discretize an OCP into a DOCP whose callbacks run on `device` in `dtype`.
 
-    Defaults mirror the JAX package (grid_size=250, scheme="midpoint"); only
-    "trapeze" is ported so far."""
+    Defaults mirror the JAX package (grid_size=250, scheme="midpoint")."""
     return DOCP(
         ocp,
         grid_size=grid_size,

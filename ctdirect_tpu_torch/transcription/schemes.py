@@ -2,12 +2,15 @@
 `ctdirect_tpu.transcription.schemes`).
 
 Every scheme produces the WHOLE grid of defect residuals and the quadrature in
-one vectorized program via `torch.func.vmap` over the grid nodes. Only the
-trapeze scheme is ported so far; `get_scheme` raises for the others.
+one vectorized program via `torch.func.vmap` over the grid nodes. Trapeze,
+Midpoint (with the sub-sampled-control "direct shooting" mode) and both Euler
+variants are ported; `get_scheme` raises NotImplementedError for the
+Gauss-Legendre (IRK) schemes, which still need stage variables in the KKT.
 
 Variable conventions (shapes; N = number of steps):
     X: (N+1, n)     states at grid nodes
-    U: (Nu, cs, m)  controls; Nu = N+1 for trapeze (cs=1)
+    U: (Nu, cs, m)  controls; Nu = N+1 for trapeze (cs=1), N otherwise;
+                    cs = controls per step (control_steps for direct shooting)
     K: (N, s, n)    IRK stage variables (None when s = 0)
     t: (N+1,)       time grid;  h: (N,) steps
     v: (q,)         static optimization variables
@@ -126,16 +129,148 @@ class Trapeze(Scheme):
         return 0.5 * h * (fns.lagrange(ti, x, U[0], v) + fns.lagrange(tip1, xn, un, v))
 
 
-SCHEMES = ("trapeze",)
+class Midpoint(Scheme):
+    """Implicit midpoint (= Gauss-Legendre s=1 without stage vars), 2nd order.
 
-# the JAX package's other schemes, still to be ported
-_NOT_PORTED = (
+    Defect x_{i+1} - x_i - (h/cs) * sum_j f(t_mid, x_mid, u_ij); with cs = 1 this is
+    the classic midpoint rule. cs > 1 is the sub-sampled-control ("direct
+    shooting") mode.
+    """
+
+    name = "midpoint"
+    info = "Implicit Midpoint aka Gauss-Legendre collocation for s=1, 2nd order, symplectic"
+    order = 2
+
+    def defects(self, fns, X, U, K, t, h, v):
+        tmid = 0.5 * (t[:-1] + t[1:])  # (N,)
+        xmid = 0.5 * (X[:-1] + X[1:])  # (N, n)
+        cs = U.shape[1]
+
+        def step_dyn(ts, xs, u_cs):
+            return vmap(fns.dynamics, in_dims=(None, None, 0, None))(ts, xs, u_cs, v)
+
+        F = vmap(step_dyn)(tmid, xmid, U)  # (N, cs, n)
+        D = X[1:] - X[:-1] - (h / cs)[:, None] * torch.sum(F, dim=1)
+        return D, None
+
+    def quadrature(self, fns, X, U, K, t, h, v):
+        xmid = 0.5 * (X[:-1] + X[1:])
+        cs = U.shape[1]
+        if cs == 1:
+            tmid = 0.5 * (t[:-1] + t[1:])
+            L = _vlag(fns, tmid, xmid, U[:, 0, :], v)
+            return torch.sum(h * L)
+        hsub = h / cs  # (N,)
+        j = torch.arange(cs, dtype=t.dtype, device=t.device)
+        tij = t[:-1, None] + (j[None, :] + 0.5) * hsub[:, None]  # (N, cs)
+
+        def step_lag(t_cs, xs, u_cs):
+            return vmap(fns.lagrange, in_dims=(0, None, 0, None))(t_cs, xs, u_cs, v)
+
+        L = vmap(step_lag)(tij, xmid, U)  # (N, cs)
+        return torch.sum(hsub[:, None] * L)
+
+    def node_controls(self, U):
+        u = U[:, 0, :]
+        return torch.cat([u, u[-1:]], dim=0)
+
+    def control_times(self, t, h):
+        t, h = np.asarray(t), np.asarray(h)
+        cs = self.cs
+        if cs == 1:
+            return t[:-1, None]
+        j = np.arange(cs)
+        return t[:-1, None] + (j[None, :] + 0.5) * (h / cs)[:, None]
+
+    def local_residual(self, fns, ti, tip1, x, U, K, xn, un, v):
+        h = tip1 - ti
+        tm = 0.5 * (ti + tip1)
+        xm = 0.5 * (x + xn)
+        cs = U.shape[0]
+        F = vmap(fns.dynamics, in_dims=(None, None, 0, None))(tm, xm, U, v)
+        return xn - x - (h / cs) * torch.sum(F, dim=0)
+
+    def local_cost(self, fns, ti, tip1, x, U, K, xn, un, v):
+        h = tip1 - ti
+        xm = 0.5 * (x + xn)
+        cs = U.shape[0]
+        if cs == 1:
+            tm = 0.5 * (ti + tip1)
+            return h * fns.lagrange(tm, xm, U[0], v)
+        hsub = h / cs
+        tij = ti + (torch.arange(cs, dtype=x.dtype, device=x.device) + 0.5) * hsub
+        L = vmap(fns.lagrange, in_dims=(0, None, 0, None))(tij, xm, U, v)
+        return hsub * torch.sum(L)
+
+
+class Euler(Scheme):
+    """Explicit / implicit Euler, 1st order.
+
+    Control convention: explicit u applies on [t_i, t_{i+1}) and the step
+    reads U_i at t_i; implicit u applies on (t_i, t_{i+1}] and the step reads
+    U_i at t_{i+1}.
+    """
+
+    order = 1
+
+    def __init__(self, explicit: bool, cs: int = 1):
+        super().__init__(cs)
+        self.explicit = explicit
+        self.name = "euler" if explicit else "euler_implicit"
+        self.info = f"{'Explicit' if explicit else 'Implicit'} Euler, 1st order"
+
+    def defects(self, fns, X, U, K, t, h, v):
+        if self.explicit:
+            F = _vdyn(fns, t[:-1], X[:-1], U[:, 0, :], v)
+        else:
+            F = _vdyn(fns, t[1:], X[1:], U[:, 0, :], v)
+        D = X[1:] - X[:-1] - h[:, None] * F
+        return D, None
+
+    def quadrature(self, fns, X, U, K, t, h, v):
+        if self.explicit:
+            L = _vlag(fns, t[:-1], X[:-1], U[:, 0, :], v)
+        else:
+            L = _vlag(fns, t[1:], X[1:], U[:, 0, :], v)
+        return torch.sum(h * L)
+
+    def node_controls(self, U):
+        # forward association (node i -> U_i, clamped at N) for BOTH variants,
+        # as in the JAX package: every constraint block stays local to
+        # (w_i, w_{i+1}), which the block-tridiagonal KKT relies on
+        u = U[:, 0, :]
+        return torch.cat([u, u[-1:]], dim=0)
+
+    def control_times(self, t, h):
+        t = np.asarray(t)
+        return (t[:-1] if self.explicit else t[1:])[:, None]
+
+    def local_residual(self, fns, ti, tip1, x, U, K, xn, un, v):
+        h = tip1 - ti
+        if self.explicit:
+            return xn - x - h * fns.dynamics(ti, x, U[0], v)
+        return xn - x - h * fns.dynamics(tip1, xn, U[0], v)
+
+    def local_cost(self, fns, ti, tip1, x, U, K, xn, un, v):
+        h = tip1 - ti
+        if self.explicit:
+            return h * fns.lagrange(ti, x, U[0], v)
+        return h * fns.lagrange(tip1, xn, U[0], v)
+
+
+SCHEMES = (
+    "trapeze",
     "midpoint",
     "euler",
     "euler_explicit",
     "euler_forward",
     "euler_implicit",
     "euler_backward",
+)
+
+# the JAX package's implicit Runge-Kutta schemes, still to be ported (they
+# need stage variables in the KKT)
+_NOT_PORTED = (
     "gauss_legendre_1",
     "gauss_legendre_2",
     "gauss_legendre_3",
@@ -149,9 +284,15 @@ def get_scheme(name: str, control_steps: int = 1) -> Scheme:
         raise ValueError("control_steps > 1 (direct shooting) requires scheme='midpoint'")
     if name == "trapeze":
         return Trapeze()
+    if name == "midpoint":
+        return Midpoint(cs=control_steps)
+    if name in ("euler", "euler_explicit", "euler_forward"):
+        return Euler(explicit=True)
+    if name in ("euler_implicit", "euler_backward"):
+        return Euler(explicit=False)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"scheme {name!r} is not ported to ctdirect_tpu_torch yet "
-            "(ROADMAP.md, queue 1: other schemes)"
+            "(ROADMAP.md, queue 1: Gauss-Legendre schemes)"
         )
     raise ValueError(f"unknown scheme {name!r}; available: {sorted(SCHEMES + _NOT_PORTED)}")

@@ -12,7 +12,7 @@ from torch.func import vmap
 
 from torch_helpers import n, random_chain_lanes, relative_residual, t
 
-from ctdirect_tpu_torch.solver import lanes
+from ctdirect_tpu_torch.solver import cr_kernel, lanes
 from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
 from ctdirect_tpu_torch.solver.structured_kkt import _scan_solve
 
@@ -70,6 +70,7 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
     assert torch.equal(X, Xp) and torch.equal(xb, xbp)
     vmap(lanes.cr_solve)(*_chain_batch_major(5, 3, 2, 3, seed=1))
     assert cr_solve_batched.launches == before == 0
+    assert sum(cr_solve_batched.launches_by_cap.values()) == 0
 
 
 def test_wrapper_rejects_other_devices():
@@ -90,6 +91,7 @@ def _needs_card():
     [
         (128, 5, 7, 512),  # the MPC tick shape (bs + wb <= 16 instantiation)
         (16, 12, 8, 130),  # bs + wb <= 32 instantiation, ragged last block of threads
+        (64, 9, 13, 1024),  # the cart-pole chain (trapeze N=60; bs + wb <= 32 instantiation)
         (1, 3, 2, 3),  # root solve only
     ],
 )
@@ -99,8 +101,10 @@ def test_kernel_matches_plain_on_card(P, bs, wb, B, dtype, tol):
     host = random_chain_lanes(P, bs, wb, B, seed=P + bs, dtype=np_dtype)
     chain = tuple(torch.tensor(x, device="cuda") for x in host)
     before = cr_solve_batched.launches
+    cap_before = cr_solve_batched.launches_by_cap[cr_kernel.cap(bs, wb)]
     X, xb = cr_solve_batched(*chain)
     assert cr_solve_batched.launches == before + 1
+    assert cr_solve_batched.launches_by_cap[cr_kernel.cap(bs, wb)] == cap_before + 1
     Xp, xbp = lanes.cr_solve_lanes(*chain)
     torch.cuda.synchronize()
     scale = max(1.0, Xp.abs().max().item(), xbp.abs().max().item())
@@ -122,3 +126,12 @@ def test_dispatch_launches_the_kernel_on_card():
     Xc, xbc = vmap(lanes.cr_solve)(*batch)
     np.testing.assert_allclose(n(X), n(Xc), rtol=1e-10, atol=1e-10)
     np.testing.assert_allclose(n(xb), n(xbc), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("bs,wb,want", [(5, 7, 16), (8, 8, 16), (9, 13, 32), (20, 12, 32)])
+def test_instantiation_by_width(bs, wb, want):
+    """The tick's chain (bs+wb=12) runs the CAP=16 kernel, cart-pole's (22) the
+    CAP=32 one; wider chains raise before any launch."""
+    assert cr_kernel.cap(bs, wb) == want
+    with pytest.raises(ValueError, match="exceeds the cap"):
+        cr_kernel.cap(bs, 33 - bs)

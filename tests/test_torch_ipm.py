@@ -81,3 +81,29 @@ def test_max_iter_zero_round_trips_the_initial_guess():
     sol = ct.solve(get_problem(DI).ocp, grid_size=8, scheme="trapeze", max_iter=0, device="cpu")
     assert sol.status == 0 and sol.iterations == 0
     np.testing.assert_allclose(sol.state_values, 0.1)
+
+
+def test_batched_adaptive_mu_and_max_iter_zero():
+    """The batched IPM under the adaptive barrier rule follows each instance's
+    unbatched solve; max_iter=0 round-trips every instance's initial guess."""
+    import ctdirect_tpu_torch as ct
+    from ctdirect_tpu_torch.parallel import BatchSolver
+    from ctdirect_tpu_torch.problems import get_problem
+    from ctdirect_tpu_torch.solver.interface import _get_solver
+
+    from torch_helpers import batch_inputs
+
+    p = get_problem("cartpole")
+    d = ct.transcribe(p.ocp, grid_size=8, scheme="trapeze", device="cpu")
+    z0, cl, cu, zl, zu = batch_inputs(d, p.init, seed=0, box_scale=[1.0, 1.25, 0.95])
+    opts = ct.IPMOptions(tol=1e-8, max_iter=60, mu_strategy="adaptive")
+    res = BatchSolver(d, opts, device="cpu")(z0, cl, cu, zl, zu)
+    run = _get_solver(d, opts)
+    for b in range(len(z0)):
+        r, _ = run(z0[b], zl[b], zu[b], cl[b], cu[b])
+        assert int(r.status) == int(res.status[b]) == 0
+        assert int(r.iterations) == int(res.iterations[b])
+        np.testing.assert_allclose(n(res.z[b]), n(r.z), rtol=0, atol=1e-10)
+    res0 = BatchSolver(d, opts.replace(max_iter=0), device="cpu")(z0, cl, cu, zl, zu)
+    assert n(res0.status).tolist() == [0] * len(z0) and n(res0.iterations).tolist() == [0] * len(z0)
+    np.testing.assert_allclose(n(res0.z), np.clip(z0, zl, zu), rtol=0, atol=1e-6)

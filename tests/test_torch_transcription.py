@@ -60,6 +60,6 @@ def test_unported_scheme_raises():
     pre.objective(lagrange=lambda t_, x, u, v: u[0] ** 2)
     ocp = pre.build()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transcribe(ocp, grid_size=4, scheme="midpoint", device="cpu")
+        transcribe(ocp, grid_size=4, scheme="gauss_legendre_2", device="cpu")
     with pytest.raises(TypeError):
         transcribe(ocp, grid_size=4, scheme="trapeze")  # device is required

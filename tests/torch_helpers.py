@@ -94,3 +94,71 @@ def relative_residual(chain, X, xb, lane):
     x = np.concatenate([X[:, :, lane].reshape(-1), xb[:, lane]])
     scale = np.abs(K).sum(axis=1).max() * np.abs(x).max() + np.abs(rhs).max()
     return float(np.abs(K @ x - rhs).max() / scale)
+
+
+# ---- batched whole-IPM solves (tests/test_torch_batch*.py) ----
+
+BATCH = 3
+
+
+def batch_inputs(d, init, seed, box_scale=None):
+    """(z0, cl, cu, zl, zu) of BATCH instances: x0 perturbed through the
+    initial-state boundary rows (instance 0 unperturbed), optionally the
+    control box scaled per instance."""
+    rng = np.random.default_rng(seed)
+    rows = d.boundary_row_indices()[: d.n]
+    cl, cu = np.tile(d._c_lb, (BATCH, 1)), np.tile(d._c_ub, (BATCH, 1))
+    dx = 0.05 * rng.standard_normal((BATCH, d.n))
+    dx[0] = 0.0
+    cl[:, rows] += dx
+    cu[:, rows] += dx
+    zl, zu = np.tile(d._z_lb, (BATCH, 1)), np.tile(d._z_ub, (BATCH, 1))
+    if box_scale is not None:
+        cols = d.control_col_indices()
+        zl[:, cols] *= np.asarray(box_scale)[:, None]
+        zu[:, cols] *= np.asarray(box_scale)[:, None]
+    return np.tile(d.initial_guess(init), (BATCH, 1)), cl, cu, zl, zu
+
+
+CASES = {
+    "cartpole": dict(name="cartpole", grid_size=12, box_scale=[1.0, 0.8, 1.25]),
+    "double_integrator": dict(name=DI, grid_size=12, box_scale=None),
+}
+
+
+def check_batch_solver_matches_jax(case):
+    """The port's BatchSolver against the JAX BatchSolver (both given the
+    cyclic-reduction StructuredKKT) on one of CASES: same status and
+    iterations per instance, objective to 1e-8 relative, z to 1e-8 absolute."""
+    import jax.numpy as jnp
+
+    from ctdirect_tpu import transcribe as transcribe_j
+    from ctdirect_tpu.parallel.batch import BatchSolver as BatchJ
+    from ctdirect_tpu.problems import get_problem as problem_j
+    from ctdirect_tpu.solver.ipm import IPMOptions as OptsJ
+    from ctdirect_tpu.solver.structured_kkt import StructuredKKT as SJ
+    from ctdirect_tpu_torch import transcribe as transcribe_t
+    from ctdirect_tpu_torch.parallel import BatchSolver as BatchT
+    from ctdirect_tpu_torch.problems import get_problem as problem_t
+    from ctdirect_tpu_torch.solver.ipm import IPMOptions as OptsT
+    from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT as ST
+
+    c = CASES[case]
+    dj = transcribe_j(problem_j(c["name"]).ocp, grid_size=c["grid_size"], scheme="trapeze")
+    dt = transcribe_t(problem_t(c["name"]).ocp, grid_size=c["grid_size"], scheme="trapeze",
+                      device="cpu")
+    np.testing.assert_array_equal(dt.control_col_indices(), dj.control_col_indices())
+    z0, cl, cu, zl, zu = batch_inputs(dj, problem_j(c["name"]).init, seed=1,
+                                      box_scale=c["box_scale"])
+    opts = dict(tol=1e-8, max_iter=60)
+    rj = BatchJ(dj, OptsJ(**opts), kkt=SJ(dj, algorithm="cr"))(
+        *(jnp.asarray(a) for a in (z0, cl, cu, zl, zu))
+    )
+    rt = BatchT(dt, OptsT(**opts), kkt=ST(dt, algorithm="cr"), device="cpu")(z0, cl, cu, zl, zu)
+    np.testing.assert_array_equal(n(rt.status), np.asarray(rj.status))
+    np.testing.assert_array_equal(n(rt.iterations), np.asarray(rj.iterations))
+    assert n(rt.successful).all()
+    np.testing.assert_allclose(n(rt.objective), np.asarray(rj.objective), rtol=1e-8)
+    np.testing.assert_allclose(n(rt.z), np.asarray(rj.z), rtol=0, atol=1e-8)
+    for field in rt._fields:  # a leading batch axis on every field
+        assert n(getattr(rt, field)).shape[0] == BATCH, field
