@@ -14,7 +14,7 @@ traceable by `torch.func` transforms (build vectors with `torch.stack`). This
 package imports neither jax nor ctdirect_tpu.
 """
 
-from ctdirect_tpu_torch.model import InitialGuess, OCP, PreOCP, Solution
+from ctdirect_tpu_torch.model import InitialGuess, OCP, PreOCP, Solution, define
 from ctdirect_tpu_torch.solver import IPMOptions, solve, solve_docp
 from ctdirect_tpu_torch.transcription import (
     DOCP,
@@ -27,6 +27,7 @@ from ctdirect_tpu_torch.transcription import (
 __all__ = [
     "OCP",
     "PreOCP",
+    "define",
     "InitialGuess",
     "Solution",
     "DOCP",

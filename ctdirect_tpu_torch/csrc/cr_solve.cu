@@ -22,7 +22,10 @@
 // Br, Eo, ro stay put at the odd slots, which no later level writes; only Bl
 // is saved aside, because B_new takes its slot. The small Gauss-Jordan
 // working matrix lives in a per-thread array with a compile-time cap
-// (bs + wb <= 16 or <= 32).
+// (bs + wb <= 16, <= 32 or <= 48: three instantiations). The array G[CAP][2*CAP]
+// sits in local memory; its frame grows with CAP^2 (CAP=48 in f64: ~37 KB per
+// thread), and the CUDA runtime reserves that frame for every thread that can
+// be resident on the card.
 //
 // What bounds it on the H100: at the MPC tick shape (P=128, bs=5, wb=7,
 // B=512, f64) the block data is ~47 MB (A, Bp 13.1 MB each, E 18.4 MB,
@@ -39,7 +42,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxWidth = 32;  // cap on bs + wb
+constexpr int kMaxWidth = 48;  // cap on bs + wb
 
 template <typename T>
 __device__ __forceinline__ T absval(T x) {
@@ -283,8 +286,11 @@ int launch(const T* A, const T* Bp, const T* E, const T* F, const T* r,
   if (n <= 16) {
     cr_solve_kernel<T, 16><<<grid, block, 0, st>>>(A, Bp, E, F, r, rb, X, xb,
                                                     work, P, bs, wb, B);
-  } else if (n <= kMaxWidth) {
+  } else if (n <= 32) {
     cr_solve_kernel<T, 32><<<grid, block, 0, st>>>(A, Bp, E, F, r, rb, X, xb,
+                                                    work, P, bs, wb, B);
+  } else if (n <= kMaxWidth) {
+    cr_solve_kernel<T, 48><<<grid, block, 0, st>>>(A, Bp, E, F, r, rb, X, xb,
                                                     work, P, bs, wb, B);
   } else {
     return (int)cudaErrorInvalidValue;

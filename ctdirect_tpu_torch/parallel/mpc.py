@@ -75,6 +75,7 @@ class MPCController:
         kkt_algorithm: str = "scan",
         kkt_solve_dtype: Optional[torch.dtype] = None,
         kkt_equilibrate: bool = False,
+        kkt_assemble_dtype: Optional[torch.dtype] = None,
         mesh=None,
         time_axis: Optional[str] = None,
         *,
@@ -82,8 +83,10 @@ class MPCController:
         dtype: torch.dtype = torch.float64,
     ):
         """kkt_solve_dtype=torch.float32 runs the block solve in f32 inside
-        the f64 Newton loop (the bench configuration). mesh/time_axis (the
-        JAX package's sharded ticks) are not ported yet."""
+        the f64 Newton loop (the bench configuration); kkt_assemble_dtype=
+        torch.float32 also runs the operator's prepare and assembly in f32
+        while the Newton residuals stay in the DOCP's dtype. mesh/time_axis
+        (the JAX package's sharded ticks) are not ported yet."""
         if mesh is not None or time_axis is not None:
             raise NotImplementedError(
                 "sharded MPC ticks (mesh=/time_axis=) are not ported to "
@@ -105,6 +108,7 @@ class MPCController:
             algorithm=kkt_algorithm,
             solve_dtype=kkt_solve_dtype,
             equilibrate=kkt_equilibrate,
+            assemble_dtype=kkt_assemble_dtype,
         )
         resolve = make_resolver(
             docp.nlp_objective,

@@ -1,6 +1,7 @@
 """Fixture OCP library with known reference objectives (PyTorch port of
 `ctdirect_tpu.problems`; each entry returns (ocp, obj, name, init)). Ported
-so far: `double_integrator_minenergy`, `cartpole`, `orbit_transfer`."""
+so far: every fixture of `basic.py`, `goddard.py` and `misc.py`, and
+`cartpole` / `orbit_transfer` of `mpc_fixtures.py`."""
 
 from __future__ import annotations
 
@@ -33,4 +34,4 @@ def problem_names():
     return sorted(_REGISTRY)
 
 
-from ctdirect_tpu_torch.problems import basic, mpc_fixtures  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import basic, goddard, misc, mpc_fixtures  # noqa: E402,F401

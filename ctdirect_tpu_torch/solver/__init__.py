@@ -6,6 +6,7 @@ from ctdirect_tpu_torch.solver.ipm import (
     ipm_solve_batched,
 )
 from ctdirect_tpu_torch.solver.interface import solve, solve_docp
+from ctdirect_tpu_torch.solver.continuation import continuation, grid_continuation
 
 __all__ = [
     "BatchStats",
@@ -15,4 +16,6 @@ __all__ = [
     "ipm_solve_batched",
     "solve",
     "solve_docp",
+    "continuation",
+    "grid_continuation",
 ]

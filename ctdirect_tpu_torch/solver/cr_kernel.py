@@ -37,8 +37,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-MAX_WIDTH = 32  # cap on bs + wb (the kernel's per-thread working arrays)
-CAPS = (16, MAX_WIDTH)  # the kernel's instantiations (csrc/cr_solve.cu: launch)
+MAX_WIDTH = 48  # cap on bs + wb (the kernel's per-thread working arrays)
+CAPS = (16, 32, MAX_WIDTH)  # the kernel's instantiations (csrc/cr_solve.cu: launch)
 
 _ENTRY = {torch.float32: "cr_solve_f32", torch.float64: "cr_solve_f64"}
 
@@ -103,8 +103,8 @@ def _load(path: Path) -> ctypes.CDLL:
 class CRKernel:
     """Callable wrapper of the CR kernel with plain-int launch counts:
     `launches` grows by one per kernel launch and nowhere else, and
-    `launches_by_cap` splits the same launches by the instantiation (16 or
-    32) that ran."""
+    `launches_by_cap` splits the same launches by the instantiation (16, 32
+    or 48) that ran."""
 
     def __init__(self):
         self.launches = 0

@@ -38,7 +38,8 @@ def make_kkt(docp: DOCP, options: IPMOptions):
 
 def _get_solver(docp: DOCP, options: IPMOptions):
     """run(z0, zl, zu, cl, cu) -> (IPMResult, postprocess tuple) on docp's
-    device, cached on the DOCP per options."""
+    device, cached on the DOCP per options; `run.kkt` is its KKT operator
+    (None for the dense mode)."""
     cache = docp.__dict__.setdefault("_solver_cache", {})
     if options not in cache:
         spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
@@ -61,6 +62,7 @@ def _get_solver(docp: DOCP, options: IPMOptions):
             )
             return result, docp.postprocess(result.z)
 
+        run.kkt = kkt
         cache[options] = run
     return cache[options]
 
@@ -72,14 +74,18 @@ def solve_docp(
     display: bool = False,
 ) -> Solution:
     """Solve a transcribed DOCP (on its device) and map the result back to
-    continuous time."""
+    continuous time. With a structured KKT operator, `sol.infos
+    ["kkt_block_solves"]` counts the block solves of this solve (on the
+    card with kkt_mode="cr": the CR kernel launches)."""
     if isinstance(init, Solution):
         init = InitialGuess.from_solution(init)
     z0 = docp.initial_guess(init)
     solver = _get_solver(docp, options)
+    before = None if solver.kkt is None else solver.kkt.block_solves
     result, post = solver(z0, docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+    infos = {} if before is None else {"kkt_block_solves": solver.kkt.block_solves - before}
     sol = docp.build_solution(
-        result, message=STATUS_MESSAGES.get(int(result.status), "Unknown"), post=post
+        result, message=STATUS_MESSAGES.get(int(result.status), "Unknown"), infos=infos, post=post
     )
     if display:
         print(sol)

@@ -77,8 +77,9 @@ class IPMOptions:
     # "structured" (block-tridiag elimination, O(N) depth) | "cr" (block cyclic
     # reduction) | "dense" (correctness oracle, small N only)
     kkt_mode: str = "structured"
-    # "f32": block solve in float32 inside the f64 Newton loop (needs the
-    # refinement/Ruiz machinery, not ported yet); None = full precision
+    # "f32": block solve in float32 inside the f64 Newton loop, with
+    # kkt_refine refinement sweeps and Ruiz scaling (kkt_equilibrate=None:
+    # on for f32); None = full precision
     kkt_solve_dtype: Optional[str] = None
     kkt_refine: int = 2
     kkt_equilibrate: Optional[bool] = None
@@ -875,7 +876,10 @@ def ipm_solve(
 class BatchStats:
     """Plain-int counters of batched solves (cumulative over calls)."""
 
-    kkt_solves: int = 0  # batched KKT block solves: one CR kernel launch each on the cr path
+    # batched KKT operator calls; each runs 1 + kkt_refine block solves under
+    # an f32 solve with refinement (else one), one CR kernel launch per block
+    # solve on the cr path (the operator's `block_solves` counts those)
+    kkt_solves: int = 0
     host_syncs: int = 0  # device->host reads of a batch-wide loop condition
     iterations: int = 0  # trips of the batch's outer loop
 

@@ -21,7 +21,9 @@ scheme's LOCAL residual/cost forms. Assembly is written out of place
 Two solves: "scan" (sequential forward block elimination + border Schur +
 back substitution; the full IPM's default) and "cr" (block cyclic reduction
 through `lanes.cr_solve`, which reaches the hand-written CUDA kernel on the
-card). Ruiz equilibration and iterative refinement are not ported yet.
+card). Around a reduced-precision block solve the operator runs two symmetric
+Ruiz passes on the assembled blocks and iterative refinement with the
+residual in the DOCP's dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -77,7 +79,8 @@ class StructuredKKT:
     for the operator protocol)."""
 
     def __init__(self, docp: DOCP, algorithm: str = "scan", solve_dtype=None,
-                 refine: int = 0, equilibrate: Optional[bool] = None):
+                 refine: int = 0, equilibrate: Optional[bool] = None,
+                 assemble_dtype=None):
         """algorithm: "scan" (sequential block elimination, O(N) depth) or
         "cr" (block cyclic reduction, O(log N) depth).
 
@@ -85,21 +88,31 @@ class StructuredKKT:
         SOLVE only — assembly, residuals and the applied step stay in the
         DOCP's dtype (inexact Newton).
 
-        refine / equilibrate: the JAX package's f64 iterative refinement and
-        Ruiz scaling around the reduced-precision solve; not ported yet, so
-        asking for them raises. equilibrate=None means "on iff solve_dtype is
-        set", as in the JAX package — pass False with a reduced solve_dtype."""
+        refine: iterative-refinement sweeps around the reduced-precision
+        solve: the residual r - K x is taken on the assembled blocks in their
+        dtype and the correction is solved in solve_dtype. The loop starts
+        from zero, so 1 + refine block solves per call. No effect when
+        solve_dtype is None.
+
+        equilibrate: two symmetric Ruiz passes (K' = D K D, d_i =
+        rownorm^-1/2) on the assembled blocks before the solve, unscaled
+        after. None means "on iff solve_dtype is set", as in the JAX package.
+
+        assemble_dtype: run prepare and assembly in this dtype (the JAX
+        package's option for the warm resolve tick; not for the full IPM).
+        None keeps the input's dtype.
+
+        `block_solves` counts the block solves this operator ran (one per
+        batched call under `torch.func.vmap`): on CUDA tensors with "cr",
+        one CR kernel launch each."""
         if algorithm not in ("scan", "cr"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
-        if equilibrate is None:
-            equilibrate = solve_dtype is not None
-        if equilibrate or (solve_dtype is not None and refine > 0):
-            raise NotImplementedError(
-                "Ruiz equilibration / iterative refinement are not ported to "
-                "ctdirect_tpu_torch yet (ROADMAP.md, queue 1: Ruiz/refinement)"
-            )
         self.algorithm = algorithm
         self.solve_dtype = solve_dtype
+        self.refine = int(refine)
+        self.equilibrate = (solve_dtype is not None) if equilibrate is None else bool(equilibrate)
+        self.assemble_dtype = assemble_dtype
+        self.block_solves = 0
         self.docp = docp
         d = _Dims(
             N=docp.N,
@@ -251,9 +264,14 @@ class StructuredKKT:
     def prepare(self, z, lam, sf, sc):
         """Per-step scaled Lagrangian Hessians + constraint Jacobians."""
         d = self.d
+        if self.assemble_dtype is not None:
+            z, lam, sf, sc = (_cast(a, self.assemble_dtype) for a in (z, lam, sf, sc))
         Wm, Y, tail, v = self._split_z(z)
         lam_steps, lam_fp, lam_bc = self._split_lam(lam)
         sc_steps, sc_fp, sc_bc = self._split_lam(sc)
+        # the grid in the working dtype (an f64 grid would promote the whole
+        # AD pass back to f64 under assemble_dtype=float32)
+        si, sip1 = self._si.to(z.dtype), self._sip1.to(z.dtype)
         sgn = self._obj_sign
 
         def step_data(si_, sip1_, w, y, lam_i, sc_i):
@@ -272,7 +290,7 @@ class StructuredKKT:
             J = sc_i[:, None] * jacfwd(cons)(arg)  # (cw, D)
             return H, J
 
-        Hloc, Jloc = vmap(step_data)(self._si, self._sip1, Wm, Y, lam_steps, sc_steps)
+        Hloc, Jloc = vmap(step_data)(si, sip1, Wm, Y, lam_steps, sc_steps)
 
         # border: hessian of sf*mayer + lam_fp' fp + lam_bc' bc over (x0,wN,tail,v)
         argb = torch.cat([Wm[0][: d.n], Wm[-1], tail, v])
@@ -350,26 +368,53 @@ class StructuredKKT:
             g,
             z.new_zeros((nc,)),
         )
-        X, xb = self._block_solve(blocks)
-        _, lam = self._unscatter(X.to(z.dtype), xb.to(z.dtype))
+        X, xb = self._block_solve(*blocks)
+        _, lam = self._unscatter(X, xb)
         return lam
 
     # ------------------------------------------------------------------
     # assembly + solve
     # ------------------------------------------------------------------
-    def _block_solve(self, blocks):
+    def _block_solve(self, A, B, E, F, r, rb):
+        """One block solve, in solve_dtype when set; the result comes back in
+        r's dtype."""
+        self.block_solves += 1
+        blocks = (A, B, E, F, r, rb)
         if self.solve_dtype is not None:
-            # mixed precision: factor+solve in solve_dtype, everything around
-            # it stays in the DOCP's dtype
             blocks = tuple(b.to(self.solve_dtype) for b in blocks)
         if self.algorithm == "cr":
-            return cr_solve(*blocks)
-        return _scan_solve(*blocks)
+            X, xb = cr_solve(*blocks)
+        else:
+            X, xb = _scan_solve(*blocks)
+        return X.to(r.dtype), xb.to(r.dtype)
 
     def solve(self, data, sigma_z, Drow, delta_w, delta_c, rz, rp):
         out_dtype = rz.dtype
-        blocks = self._assemble(data, sigma_z, Drow, delta_w, delta_c, rz, rp)
-        X, xb = self._block_solve(blocks)
+        if self.assemble_dtype is not None:
+            sigma_z, Drow, delta_w, delta_c, rz, rp = (
+                _cast(a, self.assemble_dtype) for a in (sigma_z, Drow, delta_w, delta_c, rz, rp)
+            )
+        A, B, E, F, r, rb = self._assemble(data, sigma_z, Drow, delta_w, delta_c, rz, rp)
+        if self.equilibrate:
+            # two symmetric Ruiz passes: one leaves the cross-coupled rows
+            # unbalanced; the solution is unscaled at the end (x = D x')
+            d_step, d_b = _ruiz_scales(A, B, E, F)
+            A, B, E, F, r, rb = _apply_scales(A, B, E, F, r, rb, d_step, d_b)
+            d2_step, d2_b = _ruiz_scales(A, B, E, F)
+            A, B, E, F, r, rb = _apply_scales(A, B, E, F, r, rb, d2_step, d2_b)
+            d_step, d_b = d_step * d2_step, d_b * d2_b
+        if self.solve_dtype is None or self.refine == 0:
+            X, xb = self._block_solve(A, B, E, F, r, rb)
+        else:
+            # refinement from zero: pass 0 is the base solve (the residual of
+            # x = 0 is r); a fixed count, so no data-dependent branch under vmap
+            X, xb = torch.zeros_like(r), torch.zeros_like(rb)
+            for _ in range(1 + self.refine):
+                y, yb = _block_matvec(A, B, E, F, X, xb)
+                dX, dxb = self._block_solve(A, B, E, F, r - y, rb - yb)
+                X, xb = X + dX, xb + dxb
+        if self.equilibrate:
+            X, xb = X * d_step, xb * d_b
         return self._unscatter(X.to(out_dtype), xb.to(out_dtype))
 
     def _assemble(self, data, sigma_z, Drow, delta_w, delta_c, rz, rp):
@@ -503,9 +548,61 @@ class StructuredKKT:
         return dz, dlam
 
 
+def _cast(x, dtype):
+    """A tensor in `dtype`; Python scalars stay as they are."""
+    return x.to(dtype) if isinstance(x, torch.Tensor) else x
+
+
 # ----------------------------------------------------------------------------
-# sequential solve (operates on assembled block data)
+# Ruiz scaling, block matvec, sequential solve (on assembled block data)
 # ----------------------------------------------------------------------------
+
+
+def _shift_pad(x, front: bool):
+    """x with a zero block added at the front (or the back) of axis 0."""
+    z = torch.zeros_like(x[:1])
+    return torch.cat([z, x] if front else [x, z], dim=0)
+
+
+def _ruiz_scales(A, B, E, F):
+    """Row-inf-norm scales for one symmetric Ruiz pass over the block
+    tridiagonal + arrowhead system: (d_step (N, bs), d_b (wb,)) with
+    d = rownorm^-1/2. Row i and column i get the same scale, so symmetry is
+    kept. Out of place (it runs under vmap)."""
+    rn = torch.amax(torch.abs(A), dim=2)  # (N, bs)
+    if B.shape[0] > 0:
+        absB = torch.abs(B)
+        rn = torch.maximum(rn, _shift_pad(torch.amax(absB, dim=1), front=True))  # B^T rows of block i+1
+        rn = torch.maximum(rn, _shift_pad(torch.amax(absB, dim=2), front=False))  # B rows of block i
+    absE = torch.abs(E)
+    rn = torch.maximum(rn, torch.amax(absE, dim=2))
+    rb_n = torch.maximum(torch.amax(absE, dim=(0, 1)), torch.amax(torch.abs(F), dim=1))
+    d_step = 1.0 / torch.sqrt(torch.clamp(rn, min=1e-30))
+    d_b = 1.0 / torch.sqrt(torch.clamp(rb_n, min=1e-30))
+    return d_step, d_b
+
+
+def _apply_scales(A, B, E, F, r, rb, d_step, d_b):
+    """K' = D K D, r' = D r for the block system (D = diag(d_step..., d_b))."""
+    A = A * d_step[:, :, None] * d_step[:, None, :]
+    if B.shape[0] > 0:
+        B = B * d_step[:-1, :, None] * d_step[1:, None, :]
+    E = E * d_step[:, :, None] * d_b[None, None, :]
+    F = F * d_b[:, None] * d_b[None, :]
+    return A, B, E, F, r * d_step, rb * d_b
+
+
+def _block_matvec(A, B, E, F, X, xb):
+    """K @ [X; xb] for the symmetric block-tridiagonal + arrowhead system:
+    row i: A_i X_i + B_{i-1}^T X_{i-1} + B_i X_{i+1} + E_i xb;
+    border: sum_i E_i^T X_i + F xb (the refinement residual)."""
+    y = torch.einsum("nij,nj->ni", A, X)
+    if B.shape[0] > 0:
+        y = y + _shift_pad(torch.einsum("nji,nj->ni", B, X[:-1]), front=True)
+        y = y + _shift_pad(torch.einsum("nij,nj->ni", B, X[1:]), front=False)
+    y = y + torch.einsum("niw,w->ni", E, xb)
+    yb = torch.einsum("nsw,ns->w", E, X) + F @ xb
+    return y, yb
 
 
 def _scan_solve(A, B, E, F, r, rb):

@@ -2,15 +2,16 @@
 `ctdirect_tpu.transcription.schemes`).
 
 Every scheme produces the WHOLE grid of defect residuals and the quadrature in
-one vectorized program via `torch.func.vmap` over the grid nodes. Trapeze,
-Midpoint (with the sub-sampled-control "direct shooting" mode) and both Euler
-variants are ported; `get_scheme` raises NotImplementedError for the
-Gauss-Legendre (IRK) schemes, which still need stage variables in the KKT.
+one vectorized program via `torch.func.vmap` over the grid nodes: Trapeze,
+Midpoint (with the sub-sampled-control "direct shooting" mode), both Euler
+variants and the Gauss-Legendre implicit Runge-Kutta schemes (`GenericIRK`,
+with stage variables K and shared or stagewise controls).
 
 Variable conventions (shapes; N = number of steps):
     X: (N+1, n)     states at grid nodes
     U: (Nu, cs, m)  controls; Nu = N+1 for trapeze (cs=1), N otherwise;
-                    cs = controls per step (control_steps for direct shooting)
+                    cs = controls per step (control_steps for direct shooting,
+                    s for stagewise IRK, else 1)
     K: (N, s, n)    IRK stage variables (None when s = 0)
     t: (N+1,)       time grid;  h: (N,) steps
     v: (q,)         static optimization variables
@@ -24,6 +25,7 @@ Each scheme implements:
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -258,6 +260,144 @@ class Euler(Scheme):
         return h * fns.lagrange(tip1, xn, U[0], v)
 
 
+class GenericIRK(Scheme):
+    """Implicit Runge-Kutta collocation with stage variables K.
+
+    Stage equations  K_i^j = f(t_i + c_j h, x_i + h * sum_l a_jl K_i^l, u_i^j, v)
+    and defect       x_{i+1} = x_i + h * sum_j b_j K_i^j.
+    `stagewise=True` gives a distinct control per stage U_i^j; otherwise the
+    step control U_i is shared by all stages. The Butcher arrays are kept in
+    numpy and become tensors on the input's device and dtype at every call.
+    """
+
+    def __init__(self, name, info, order, A, b, c, stagewise: bool):
+        self.A = np.asarray(A, dtype=np.float64)
+        self.b = np.asarray(b, dtype=np.float64)
+        self.c = np.asarray(c, dtype=np.float64)
+        self.stages = len(self.b)
+        self.stagewise = stagewise
+        super().__init__(cs=self.stages if stagewise else 1)
+        self.name = name
+        self.info = info
+        self.order = order
+
+    def _tableau(self, like):
+        """(A, b, c) as tensors on `like`'s device, in its dtype."""
+        return tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                     for a in (self.A, self.b, self.c))
+
+    def _stage_controls(self, U):
+        """(N, s, m) control used at each stage."""
+        if self.stagewise:
+            return U
+        return U.expand(U.shape[0], self.stages, U.shape[2])
+
+    def _stage_txu(self, X, U, K, t, h):
+        """Stage times, states and controls (N, s, ...) and the weights b."""
+        A, b, c = self._tableau(X)
+        tij = t[:-1, None] + c[None, :] * h[:, None]  # (N, s)
+        Xij = X[:-1, None, :] + h[:, None, None] * torch.einsum("jl,nlx->njx", A, K)
+        return tij, Xij, self._stage_controls(U), b
+
+    def _flat_stages(self, fn, tij, Xij, Uij, v):
+        """fn over every (step, stage) pair -> (N, s, ...)."""
+        N, s = tij.shape
+        out = vmap(fn, in_dims=(0, 0, 0, None))(
+            tij.reshape(N * s), Xij.reshape(N * s, Xij.shape[-1]),
+            Uij.reshape(N * s, Uij.shape[-1]), v,
+        )
+        return out.reshape((N, s) + out.shape[1:])
+
+    def defects(self, fns, X, U, K, t, h, v):
+        tij, Xij, Uij, b = self._stage_txu(X, U, K, t, h)
+        F = self._flat_stages(fns.dynamics, tij, Xij, Uij, v)  # (N, s, n)
+        S = K - F  # stage residuals (N, s, n)
+        D = X[1:] - X[:-1] - h[:, None] * torch.einsum("j,njx->nx", b, K)
+        return D, S
+
+    def quadrature(self, fns, X, U, K, t, h, v):
+        tij, Xij, Uij, b = self._stage_txu(X, U, K, t, h)
+        L = self._flat_stages(fns.lagrange, tij, Xij, Uij, v)  # (N, s)
+        return torch.sum(h[:, None] * b[None, :] * L)
+
+    def node_controls(self, U):
+        if self.stagewise:
+            # compatibility averaged control sum_j b_j U_i^j
+            _, b, _ = self._tableau(U)
+            u = torch.einsum("j,njm->nm", b, U)
+        else:
+            u = U[:, 0, :]
+        return torch.cat([u, u[-1:]], dim=0)
+
+    def local_node_control(self, U):
+        if self.stagewise:
+            _, b, _ = self._tableau(U)
+            return torch.einsum("j,jm->m", b, U)
+        return U[0]
+
+    def _local_stages(self, ti, tip1, x, U, K):
+        h = tip1 - ti
+        A, b, c = self._tableau(x)
+        tij = ti + c * h  # (s,)
+        Xij = x[None, :] + h * torch.einsum("jl,lx->jx", A, K)  # (s, n)
+        Uij = U if self.stagewise else U.expand(self.stages, U.shape[1])
+        return h, b, tij, Xij, Uij
+
+    def local_residual(self, fns, ti, tip1, x, U, K, xn, un, v):
+        h, b, tij, Xij, Uij = self._local_stages(ti, tip1, x, U, K)
+        F = vmap(fns.dynamics, in_dims=(0, 0, 0, None))(tij, Xij, Uij, v)
+        S = K - F  # (s, n)
+        D = xn - x - h * torch.einsum("j,jx->x", b, K)
+        return torch.cat([D, S.reshape(-1)])
+
+    def local_cost(self, fns, ti, tip1, x, U, K, xn, un, v):
+        h, b, tij, Xij, Uij = self._local_stages(ti, tip1, x, U, K)
+        L = vmap(fns.lagrange, in_dims=(0, 0, 0, None))(tij, Xij, Uij, v)
+        return h * torch.dot(b, L)
+
+    def control_times(self, t, h):
+        t, h = np.asarray(t), np.asarray(h)
+        if self.stagewise:
+            # init sampled at the stage times t_i + c_j h
+            return t[:-1, None] + self.c[None, :] * h[:, None]
+        return t[:-1, None]
+
+
+_SQ3, _SQ15 = math.sqrt(3.0), math.sqrt(15.0)
+
+_GL1 = dict(A=[[0.5]], b=[1.0], c=[0.5])
+_GL2 = dict(
+    A=[[0.25, 0.25 - _SQ3 / 6], [0.25 + _SQ3 / 6, 0.25]],
+    b=[0.5, 0.5],
+    c=[0.5 - _SQ3 / 6, 0.5 + _SQ3 / 6],
+)
+_GL3 = dict(
+    A=[
+        [5 / 36, 2 / 9 - _SQ15 / 15, 5 / 36 - _SQ15 / 30],
+        [5 / 36 + _SQ15 / 24, 2 / 9, 5 / 36 - _SQ15 / 24],
+        [5 / 36 + _SQ15 / 30, 2 / 9 + _SQ15 / 15, 5 / 36],
+    ],
+    b=[5 / 18, 4 / 9, 5 / 18],
+    c=[0.5 - _SQ15 / 10, 0.5, 0.5 + _SQ15 / 10],
+)
+
+# name -> (info, order, stagewise, tableau). As in the JAX package, the plain
+# gauss_legendre_{2,3} names are the STAGEWISE variants (a control per stage);
+# the shared-control forms carry the _constant_control suffix.
+_IRK = {
+    "gauss_legendre_1": (
+        "[test only] Implicit Midpoint as IRK s=1, 2nd order, symplectic, A-stable", 2, False, _GL1),
+    "gauss_legendre_2": (
+        "Implicit Gauss-Legendre collocation s=2, 4th order, stagewise controls", 4, True, _GL2),
+    "gauss_legendre_3": (
+        "Implicit Gauss-Legendre collocation s=3, 6th order, stagewise controls", 6, True, _GL3),
+    "gauss_legendre_2_constant_control": (
+        "Implicit Gauss-Legendre collocation s=2, 4th order, constant control", 4, False, _GL2),
+    "gauss_legendre_3_constant_control": (
+        "Implicit Gauss-Legendre collocation s=3, 6th order, constant control", 6, False, _GL3),
+}
+
+
 SCHEMES = (
     "trapeze",
     "midpoint",
@@ -266,11 +406,6 @@ SCHEMES = (
     "euler_forward",
     "euler_implicit",
     "euler_backward",
-)
-
-# the JAX package's implicit Runge-Kutta schemes, still to be ported (they
-# need stage variables in the KKT)
-_NOT_PORTED = (
     "gauss_legendre_1",
     "gauss_legendre_2",
     "gauss_legendre_3",
@@ -290,9 +425,7 @@ def get_scheme(name: str, control_steps: int = 1) -> Scheme:
         return Euler(explicit=True)
     if name in ("euler_implicit", "euler_backward"):
         return Euler(explicit=False)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"scheme {name!r} is not ported to ctdirect_tpu_torch yet "
-            "(ROADMAP.md, queue 1: Gauss-Legendre schemes)"
-        )
-    raise ValueError(f"unknown scheme {name!r}; available: {sorted(SCHEMES + _NOT_PORTED)}")
+    if name in _IRK:
+        info, order, stagewise, tableau = _IRK[name]
+        return GenericIRK(name, info, order, stagewise=stagewise, **tableau)
+    raise ValueError(f"unknown scheme {name!r}; available: {sorted(SCHEMES)}")

@@ -14,14 +14,12 @@ import torch
 
 from ctdirect_tpu_torch.model.ocp import OCP
 from ctdirect_tpu_torch.transcription.docp import DOCP
-from ctdirect_tpu_torch.transcription.schemes import _NOT_PORTED, SCHEMES
+from ctdirect_tpu_torch.transcription.schemes import SCHEMES
 from ctdirect_tpu_torch.utils.options import OptionDef, OptionSet
-
-_KNOWN = SCHEMES + _NOT_PORTED  # unported names raise NotImplementedError in DOCP
 
 
 def _valid_scheme(s):
-    return s in _KNOWN
+    return s in SCHEMES
 
 
 def _grid_size_def():

@@ -10,7 +10,7 @@ import pytest
 import torch
 from torch.func import vmap
 
-from torch_helpers import n, random_chain_lanes, relative_residual, t
+from torch_helpers import lane_residuals, n, random_chain_lanes, relative_residual, t
 
 from ctdirect_tpu_torch.solver import cr_kernel, lanes
 from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
@@ -27,6 +27,23 @@ def test_plain_cr_solves_the_system(dtype, bound):
     tdt = torch.float64 if dtype == np.float64 else torch.float32
     X, xb = lanes.cr_solve_lanes(*(t(x, tdt) for x in chain))
     assert max(relative_residual(chain, X, xb, lane) for lane in (0, 4, B - 1)) < bound
+
+
+def test_lane_residuals_match_the_dense_oracle():
+    """The every-lane block-matvec residual (used on the card, where a dense
+    matrix per lane is too big) == the dense one lane by lane, and is large
+    for a wrong solution."""
+    P, bs, wb, B = 8, 4, 3, 5
+    chain = random_chain_lanes(P, bs, wb, B, seed=6)
+    tchain = tuple(t(x) for x in chain)
+    X, xb = lanes.cr_solve_lanes(*tchain)
+    assert n(lane_residuals(tchain, X, xb)).max() < 1e-13
+    # away from rounding level the two agree lane by lane
+    Xw = X + 1e-3 * t(np.random.default_rng(1).standard_normal(X.shape))
+    res = n(lane_residuals(tchain, Xw, xb))
+    want = [relative_residual(chain, Xw, xb, lane) for lane in range(B)]
+    np.testing.assert_allclose(res, want, rtol=1e-9)
+    assert res.min() > 1e-6
 
 
 def _chain_batch_major(N, bs, wb, B, seed):
@@ -93,6 +110,9 @@ def _needs_card():
         (16, 12, 8, 130),  # bs + wb <= 32 instantiation, ragged last block of threads
         (64, 9, 13, 1024),  # the cart-pole chain (trapeze N=60; bs + wb <= 32 instantiation)
         (1, 3, 2, 3),  # root solve only
+        (256, 19, 8, 1),  # goddard GL2-constant-control at N=200: the unbatched cr path (B=1)
+        (256, 30, 11, 1),  # goddard_all GL3 (width 41): bs + wb <= 48 instantiation, B=1
+        (256, 30, 11, 256),  # the same chain batched
     ],
 )
 def test_kernel_matches_plain_on_card(P, bs, wb, B, dtype, tol):
@@ -128,10 +148,13 @@ def test_dispatch_launches_the_kernel_on_card():
     np.testing.assert_allclose(n(xb), n(xbc), rtol=1e-10, atol=1e-10)
 
 
-@pytest.mark.parametrize("bs,wb,want", [(5, 7, 16), (8, 8, 16), (9, 13, 32), (20, 12, 32)])
+@pytest.mark.parametrize(
+    "bs,wb,want", [(5, 7, 16), (8, 8, 16), (9, 13, 32), (20, 12, 32), (19, 14, 48), (30, 11, 48)]
+)
 def test_instantiation_by_width(bs, wb, want):
     """The tick's chain (bs+wb=12) runs the CAP=16 kernel, cart-pole's (22) the
-    CAP=32 one; wider chains raise before any launch."""
+    CAP=32 one, goddard_all GL3's (41) the CAP=48 one; wider chains raise
+    before any launch, naming the width."""
     assert cr_kernel.cap(bs, wb) == want
-    with pytest.raises(ValueError, match="exceeds the cap"):
-        cr_kernel.cap(bs, 33 - bs)
+    with pytest.raises(ValueError, match="bs \\+ wb = 49 exceeds the cap 48"):
+        cr_kernel.cap(bs, 49 - bs)

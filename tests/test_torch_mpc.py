@@ -107,5 +107,7 @@ def test_controller_rejects_unported_and_mismatched_options():
         MPCController(d, [0, 1], mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="DOCP is on"):
         MPCController(d, [0, 1], device="cpu", dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MPCController(d, [0, 1], kkt_solve_dtype=torch.float32, kkt_equilibrate=True, device="cpu")
+    # Ruiz and the f32 assembly are ported: they reach the tick's operator
+    ctrl = MPCController(d, [0, 1], kkt_solve_dtype=torch.float32, kkt_equilibrate=True,
+                         kkt_assemble_dtype=torch.float32, device="cpu")
+    assert ctrl.kkt.equilibrate and ctrl.kkt.assemble_dtype == torch.float32

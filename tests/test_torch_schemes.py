@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import n, t, torch_docp
+from torch_helpers import jax_docp, n, t, torch_docp
 
 TOL = 1e-12
 
@@ -218,5 +218,12 @@ def test_strategy_options_are_validated():
     with pytest.raises(OptionError, match="invalid value"):
         ct.Collocation(scheme="rk4")
     assert ct.Collocation(mode="permissive", extra=1).opts["extra"] == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ct.discretize(torch_docp().ocp, ct.Collocation(scheme="gauss_legendre_1"), device="cpu")
+    # a Gauss-Legendre scheme discretizes as in the JAX package
+    import ctdirect_tpu as cj
+
+    gl = dict(scheme="gauss_legendre_2", grid_size=5)
+    dt = ct.discretize(torch_docp().ocp, ct.Collocation(**gl), device="cpu")
+    dj = cj.discretize(jax_docp().ocp, cj.Collocation(**gl))
+    assert dt.scheme.name == dj.scheme.name == "gauss_legendre_2"
+    for attr in ("N", "s", "cs", "bw", "cw", "nz", "nc"):
+        assert getattr(dt, attr) == getattr(dj, attr), attr

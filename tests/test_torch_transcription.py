@@ -59,7 +59,8 @@ def test_unported_scheme_raises():
     pre.dynamics(lambda t_, x, u, v: torch.stack([x[1], u[0]]))
     pre.objective(lagrange=lambda t_, x, u, v: u[0] ** 2)
     ocp = pre.build()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transcribe(ocp, grid_size=4, scheme="gauss_legendre_2", device="cpu")
+    # every scheme name of the JAX package is ported; an unknown one raises
+    with pytest.raises(ValueError, match="unknown scheme"):
+        transcribe(ocp, grid_size=4, scheme="gauss_legendre_4", device="cpu")
     with pytest.raises(TypeError):
         transcribe(ocp, grid_size=4, scheme="trapeze")  # device is required

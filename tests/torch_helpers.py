@@ -41,18 +41,38 @@ def n(x):
     return np.asarray(x)
 
 
+def box_sample(rng, lb, ub, shape=None):
+    """A numpy point inside the box [lb, ub] (broadcast to `shape` if given):
+    uniform where both bounds are finite, the finite bound plus |N(0,1)|
+    where one is, N(0,1) where none is (keeps fixtures such as goddard's
+    exp(-500 (r - 1)) finite)."""
+    lb, ub = np.asarray(lb, dtype=np.float64), np.asarray(ub, dtype=np.float64)
+    if shape is not None:
+        lb, ub = np.broadcast_to(lb, shape), np.broadcast_to(ub, shape)
+    lo, hi = np.isfinite(lb), np.isfinite(ub)
+    z = rng.standard_normal(lb.shape)
+    width = np.where(lo & hi, ub - lb, 0.0)
+    out = np.where(lo & hi, lb + rng.uniform(0.0, 1.0, lb.shape) * width, z)
+    out = np.where(lo & ~hi, lb + np.abs(z), out)
+    return np.where(~lo & hi, ub - np.abs(z), out)
+
+
 def random_chain_lanes(P, bs, wb, B, seed=0, dtype=np.float64):
     """Random well-conditioned padded block chain, lane-minor, numpy.
 
     A and F are SYMMETRIC: the CR recurrences exploit the KKT system's
-    symmetry. Same construction as tests/test_pallas.py."""
+    symmetry. Same construction as tests/test_pallas.py, whose diagonal
+    shift of 4 keeps blocks up to bs = 12 well conditioned; wider blocks get
+    a shift of 4 + bs (their off-diagonal row sums grow with bs, and with a
+    shift of 4 a width-41 chain has f64 solutions that differ by 0.5)."""
     rng = np.random.default_rng(seed)
 
     def rnd(*s):
         return rng.standard_normal(s).astype(dtype)
 
+    shift = 4.0 if bs <= 12 else 4.0 + bs
     A = rnd(P, bs, bs, B) * 0.3
-    A = A + np.swapaxes(A, 1, 2) + np.eye(bs, dtype=dtype)[None, :, :, None] * 4.0
+    A = A + np.swapaxes(A, 1, 2) + np.eye(bs, dtype=dtype)[None, :, :, None] * shift
     Bp = rnd(P, bs, bs, B) * 0.3
     Bp[-1] = 0.0
     E = rnd(P, bs, wb, B) * 0.2
@@ -94,6 +114,29 @@ def relative_residual(chain, X, xb, lane):
     x = np.concatenate([X[:, :, lane].reshape(-1), xb[:, lane]])
     scale = np.abs(K).sum(axis=1).max() * np.abs(x).max() + np.abs(rhs).max()
     return float(np.abs(K @ x - rhs).max() / scale)
+
+
+def lane_residuals(chain, X, xb):
+    """relative_residual of EVERY lane at once, without a dense matrix: the
+    block matvec of the lane-minor chain (tensors on any device, computed in
+    float64), |K x - rhs| / (max row sum |K| * max |x| + max |rhs|) per lane.
+    Returns a (B,) float64 tensor."""
+    A, Bp, E, F, r, rb = (x.to(torch.float64) for x in chain)
+    X, xb = X.to(torch.float64), xb.to(torch.float64)
+    BpT = Bp.transpose(1, 2)
+    zero = torch.zeros_like(X[:1])
+    X_next = torch.cat([X[1:], zero])
+    X_prev = torch.cat([zero, X[:-1]])
+    BpT_prev = torch.cat([torch.zeros_like(BpT[:1]), BpT[:-1]])
+    y = (torch.einsum("pijb,pjb->pib", A, X) + torch.einsum("pijb,pjb->pib", Bp, X_next)
+         + torch.einsum("pijb,pjb->pib", BpT_prev, X_prev) + torch.einsum("piwb,wb->pib", E, xb))
+    yb = torch.einsum("piwb,pib->wb", E, X) + torch.einsum("vwb,wb->vb", F, xb)
+    res = torch.maximum((y - r).abs().amax(dim=(0, 1)), (yb - rb).abs().amax(dim=0))
+    rows = (A.abs().sum(2) + Bp.abs().sum(2) + BpT_prev.abs().sum(2) + E.abs().sum(2)).amax(dim=(0, 1))
+    rows = torch.maximum(rows, (E.abs().sum(dim=(0, 1)) + F.abs().sum(1)).amax(dim=0))
+    x_max = torch.maximum(X.abs().amax(dim=(0, 1)), xb.abs().amax(dim=0))
+    rhs_max = torch.maximum(r.abs().amax(dim=(0, 1)), rb.abs().amax(dim=0))
+    return res / (rows * x_max + rhs_max)
 
 
 # ---- batched whole-IPM solves (tests/test_torch_batch*.py) ----
