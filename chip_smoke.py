@@ -1,10 +1,10 @@
 """Drive the PyTorch port's main path once on an NVIDIA GPU and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--old OLD_SOURCE]
 
 Phases (any failure raises and the script exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CR kernel from ctdirect_tpu_torch/csrc/cr_solve.cu;
+  2. build the CR kernel from ctdirect_tpu_torch/csrc/cr_solve.cu (ptxas report);
   3. kernel vs its plain PyTorch version at the MPC tick shape
      (P=128, bs=5, wb=7, B=512) in float32 and float64, plus a dense-residual
      check on 3 lanes; times of both (CUDA events, median of 20 calls);
@@ -19,8 +19,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
   7. the front door with the default scheme (midpoint): ct.solve(double
      integrator, N=100) with no scheme= against the same analytic oracles;
   8. the cart-pole MPC tick (BASELINE config 3): cold start + 1024 warm-started
-     controllers at N=60 trapeze, 3 Newton steps, f64 block solve through the
-     CAP=32 kernel; 2 warm-up + 10 timed ticks, launches = ticks x 3;
+     controllers at N=60 trapeze, 3 Newton steps, f64 block solve; 2 warm-up
+     + 10 timed ticks, launches = ticks x 3;
   9. batched cart-pole scenario solves: BatchSolver (kkt_mode="cr", tol 1e-6,
      30 iterations at most) over 1024 instances with per-instance x0, from the
      cold-start solution; launches = the batched KKT solves, three instances
@@ -30,7 +30,7 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      solve and with the f32 block solve + 2 refinement sweeps + Ruiz: both
      successful, the objective within 1e-2 of 1.01257, the two runs agreeing to
      1e-7 in objective and 1e-4 in controls; launches = the operator's block
-     solves, all on the CAP=32 instantiation (the unbatched cr path, B=1);
+     solves (the unbatched cr path, B=1);
  11. the 10-problem suite (benchmarks/sweep.py's EASY_SET) at N=250 trapeze
      under the sweep's options (f32 block solve, refinement, Ruiz, its
      per-problem overrides; jackson with one more refinement sweep): every
@@ -41,17 +41,37 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      the JAX package's final objective with the same grids on the CPU.
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
-(P=256, bs=19, wb=8, B=1, f32 and f64) and on the CAP=48 instantiation at the
-width-41 goddard_all GL3 chain (P=256, bs=30, wb=11, B=1 and B=256, f64); at
-the new shapes the dense residual is checked on every lane. Each path's
-launches are counted from zero just before it runs and read just after.
+(P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
+chain (P=256, bs=30, wb=11, B=1 and B=256, f64); at these shapes the dense
+residual is checked on every lane. At each shape it prints the kernel's,
+the plain version's and a library call's time (torch.linalg.solve of the
+same system as one dense matrix per instance, at most LIBRARY_MAX_B of
+them), the bound (bytes or operations), the kernel's share of it, the form
+that ran, the CUDA launches of one solve and the device memory free across
+the first launch; then the launch floor of one solve at P=256. Phase 2
+prints ptxas's registers, stack frame and spills per kernel and fails on a
+spill or a stack frame of 1 KB or more. Each path's launches are counted
+from zero just before it runs and read just after: one `launches` per block
+solve, and `grid_launches` must equal the planned CUDA launches of those
+solves (3 + 3 log2 P each, P = the path's chain padded to a power of two).
 The card's name and power limit are printed first and again just before the
 JSON lines; the line before the last is a JSON object describing the kernel
-(one entry per dtype, its launches per path split by instantiation, the
-times at every shape); the last line is {"ok": true, "device": {...}}.
+(one entry per dtype: its launches and CUDA launches per path, the times,
+bounds and library times at every shape); the last line is
+{"ok": true, "device": {...}}.
+
+--old OLD_SOURCE adds the earlier one-thread-per-instance kernel, built from
+an earlier cr_solve.cu with its C interface, to phase 3: at each shape it is
+held against the plain version with the same tolerance and timed in turns
+with the current kernel (old, new, new, old; CUDA events, median of up to 20
+calls each, fewer where one call takes seconds). Its calls count nowhere.
 """
 
+import argparse
+import ctypes
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,7 +98,23 @@ CP_MIN_CONVERGED = 0.4375
 GD_N, GD_SCHEME, GD_OBJ = 200, "gauss_legendre_2_constant_control", 1.01257
 GD_OPTS = dict(tol=1e-8, mu_strategy="adaptive", kkt_mode="cr")
 P_GD, BS_GD, WB_GD = 256, 19, 8  # its KKT chain (bs + wb = 27), padded to a power of two
-P_W, BS_W, WB_W, B_W = 256, 30, 11, 256  # goddard_all GL3 at N=200 (width 41, CAP=48)
+P_W, BS_W, WB_W, B_W = 256, 30, 11, 256  # goddard_all GL3 at N=200 (width 41)
+# phase 3's shapes: (dtype, P, bs, wb, B)
+PHASE3_SHAPES = [(torch.float32, P_TICK, BS_TICK, WB_TICK, B), (torch.float64, P_TICK, BS_TICK, WB_TICK, B),
+                 (torch.float64, P_CP, BS_CP, WB_CP, CP_B),
+                 (torch.float32, P_GD, BS_GD, WB_GD, 1), (torch.float64, P_GD, BS_GD, WB_GD, 1),
+                 (torch.float64, P_W, BS_W, WB_W, 1), (torch.float64, P_W, BS_W, WB_W, B_W)]
+# the library yardstick solves at most this many dense systems (goddard_all at
+# B=256 would be 121 GB of f64 matrices)
+LIBRARY_MAX_B = 16
+# NVIDIA's H100 SXM data sheet: the HBM3 rate; 67 TFLOP/s is its f32 rate outside
+# the tensor cores and its f64 rate on them (DMMA, which the small matrix
+# products of the reduction could use)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
+MAX_STACK_BYTES = 1024
+# the CR kernel's CUDA kernels, as the profiler names them (pack and unpack are transpose_kernel)
+CR_KERNELS = re.compile(r"\b(up_odd|up_even|root_solve|down|transpose_kernel)<")
 # phase 12, cut from grids (50, 200) to (50, 100) to keep the script near half
 # its time limit (PERF.md). Its final stage is held against the JAX
 # package's grid_continuation with the same grids and options on the CPU
@@ -112,7 +148,8 @@ SUITE_JAX_CPU = {
     "vanderpol": 1.047825431959713,
 }
 # On the H100 the sweep's jackson options stall (status 2 after 298
-# iterations, objective 6 % off, the same in two runs; PERF.md): its f32
+# iterations, objective 6 % off, the same with the one-thread-per-instance
+# kernel and with the level-parallel one; PERF.md): its f32
 # solve without Ruiz is rounding-fragile, as the sweep's own note says
 # (benchmarks/sweep.py:57-61). One more refinement sweep converges it, after
 # the sweep's per-cell override for goddard_all N=5000 (:69-73, --refine 3).
@@ -148,43 +185,157 @@ def random_chain(P, bs, wb, B, dtype, seed=0):
     return tuple(torch.tensor(x, dtype=dtype, device="cuda") for x in host)
 
 
-def median_ms(fn, calls=20):
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(calls):
+def median_ms(fn, calls=20, budget_ms=None):
+    """Median CUDA-event ms of `calls` calls after a warm-up call; with
+    `budget_ms`, fewer calls (at least 3) where the warm-up says they would
+    take longer."""
+    def once():
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+        return start.elapsed_time(end)
+
+    first = once()
+    if budget_ms is not None:
+        calls = max(3, min(calls, int(budget_ms / max(first, 1e-3))))
+    return float(np.median([once() for _ in range(calls)]))
 
 
-def phase_kernel_vs_plain(kernel):
+def grid_per_solve(P):
+    """The CUDA launches of one solve of a chain padded to P blocks (the
+    library's plan)."""
+    from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
+
+    return len(cr_solve_batched.plan(P, 1, 0, 1, 8))
+
+
+def old_kernel(source):
+    """solve(*chain) of the one-thread-per-instance kernel built from an
+    earlier cr_solve.cu (C interface: cr_solve_f32 / cr_solve_f64(A, Bp, E, F, r, rb, X, xb, work,
+    P, bs, wb, B, stream) and cr_workspace_elems(P, bs, wb, B))."""
+    from ctdirect_tpu_torch.solver import cr_kernel
+
+    lib = cr_kernel.BUILD_DIR / f"libcr_solve_old-{hashlib.sha256(source.read_bytes()).hexdigest()[:16]}.so"
+    if not lib.exists():
+        cr_kernel.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cr_kernel._nvcc(), *cr_kernel.NVCC_FLAGS, "-o", str(lib), str(source)], check=True)
+    dll = ctypes.CDLL(str(lib))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("cr_solve_f32", "cr_solve_f64"):
+        getattr(dll, name).argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+        getattr(dll, name).restype = i32
+    dll.cr_workspace_elems.argtypes = [i32] * 4
+    dll.cr_workspace_elems.restype = ctypes.c_size_t
+
+    def solve(A, Bp, E, F, r, rb):
+        P, bs, _, nb = A.shape
+        wb = E.shape[-2]
+        X = torch.empty((P, bs, nb), dtype=A.dtype, device=A.device)
+        xb = torch.empty((wb, nb), dtype=A.dtype, device=A.device)
+        work = torch.empty(dll.cr_workspace_elems(P, bs, wb, nb), dtype=A.dtype, device=A.device)
+        fn = dll.cr_solve_f32 if A.dtype == torch.float32 else dll.cr_solve_f64
+        rc = fn(A.data_ptr(), Bp.data_ptr(), E.data_ptr(), F.data_ptr(), r.data_ptr(), rb.data_ptr(), X.data_ptr(),
+                xb.data_ptr(), work.data_ptr(), P, bs, wb, nb, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old CR kernel launch failed: cudaError {rc}")
+        return X, xb
+
+    return solve
+
+
+def chain_blocks(N):
+    """A DOCP of N steps gives a KKT chain of N blocks, padded to a power of two."""
+    return 1 << (N - 1).bit_length()
+
+
+def bound(dtype, P, bs, wb, nb):
+    """(bound ms, what sets it, bytes, flops) of one solve: each input read
+    once and each output written once, over the HBM rate; the operations the
+    reduction needs, over PEAK_FLOP_S. Per odd block: the inverse of A_o
+    (2 bs^3), the five bs x bs products of the couplings and Schur updates
+    (10 bs^3), the three products with E_o (6 bs^2 wb), the border term
+    (2 bs wb^2), the right-hand sides and the down-sweep step (12 bs^2 +
+    4 bs wb); then one dense LU solve of the root, n = bs + wb (2n^3/3 + 2n^2)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * nb * (P * (2 * bs * bs + bs * wb + 2 * bs) + wb * wb + 2 * wb)
+    per_odd = 12 * bs**3 + 6 * bs * bs * wb + 2 * bs * wb * wb + 12 * bs * bs + 4 * bs * wb
+    n = bs + wb
+    flops = nb * ((P - 1) * per_odd + 2 * n**3 / 3 + 2 * n * n)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S[dtype] * 1e3
+    return (t_bytes, "bytes", nbytes, flops) if t_bytes >= t_ops else (t_ops, "operations", nbytes, flops)
+
+
+def dense_system(chain, lanes):
+    """The first `lanes` instances of a lane-minor chain as dense (n x n)
+    matrices and right-hand sides on the card, n = P bs + wb."""
+    A, Bp, E, F, r, rb = (x[..., :lanes].movedim(-1, 0) for x in chain)
+    P, bs, wb = A.shape[1], A.shape[2], E.shape[-1]
+    m = P * bs
+    K = A.new_zeros((lanes, m + wb, m + wb))
+    for p in range(P):
+        sl = slice(p * bs, (p + 1) * bs)
+        K[:, sl, sl] = A[:, p]
+        if p + 1 < P:
+            sl1 = slice((p + 1) * bs, (p + 2) * bs)
+            K[:, sl, sl1] = Bp[:, p]
+            K[:, sl1, sl] = Bp[:, p].transpose(-1, -2)
+    Ec = E.reshape(lanes, m, wb)
+    K[:, :m, m:] = Ec
+    K[:, m:, :m] = Ec.transpose(-1, -2)
+    K[:, m:, m:] = F
+    return K, torch.cat([r.reshape(lanes, m), rb], dim=1)[..., None]
+
+
+def launch_split(kernel, chain, calls=5):
+    """Device ms of one solve by CUDA kernel (torch.profiler over `calls` solves)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            kernel(*chain)
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        m = CR_KERNELS.search(e.key)
+        if m and e.device_type.name == "CUDA":
+            split[m.group(1)] = split.get(m.group(1), 0.0) + e.self_device_time_total / calls / 1e3
+    return split
+
+
+def phase_kernel_vs_plain(kernel, old=None):
     """The kernel against its plain version at every shape the paths give it:
     agreement, a dense-residual check (3 lanes at the tick and cart-pole shapes, every
-    lane at the others) and the times of both. Returns one record per
-    shape."""
+    lane at the others), the times of the kernel, the plain version and the
+    library call, the bound, the form, the launches of one solve and the
+    device memory across the first launch; with `old` (old_kernel), the
+    earlier kernel's agreement and both kernels' times in turns. Returns one
+    record per shape."""
     from torch_helpers import lane_residuals, relative_residual
 
-    from ctdirect_tpu_torch.solver import cr_kernel
     from ctdirect_tpu_torch.solver.lanes import cr_solve_lanes
 
     results = []
-    cases = [(torch.float32, P_TICK, BS_TICK, WB_TICK, B), (torch.float64, P_TICK, BS_TICK, WB_TICK, B),
-             (torch.float64, P_CP, BS_CP, WB_CP, CP_B),
-             (torch.float32, P_GD, BS_GD, WB_GD, 1), (torch.float64, P_GD, BS_GD, WB_GD, 1),
-             (torch.float64, P_W, BS_W, WB_W, 1), (torch.float64, P_W, BS_W, WB_W, B_W)]
-    for dtype, P, bs, wb, nb in cases:
-        cap = cr_kernel.cap(bs, wb)
+    for dtype, P, bs, wb, nb in PHASE3_SHAPES:
+        itemsize = torch.finfo(dtype).bits // 8
         chain = random_chain(P, bs, wb, nb, dtype)
         torch.cuda.synchronize()
-        free0 = torch.cuda.mem_get_info()[0]
+        free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+        grid0 = kernel.grid_launches
         X, xb = kernel(*chain)
         torch.cuda.synchronize()
+        grid = kernel.grid_launches - grid0
         free1, total = torch.cuda.mem_get_info()
+        # what the first launch took outside PyTorch's allocator (its outputs and workspace)
+        outside = (free0 - free1) - (torch.cuda.memory_reserved() - reserved0)
+        if not outside < 2**30:
+            raise AssertionError(f"kernel at P={P} bs={bs} wb={wb} B={nb}: the first launch took "
+                                 f"{outside / 2**30:.2f} GiB of device memory outside PyTorch's allocator")
+        plan = kernel.plan(P, bs, wb, nb, itemsize)
+        if grid != len(plan):
+            raise AssertionError(f"kernel at P={P}: {grid} CUDA launches in one solve, planned {len(plan)}")
         Xp, xbp = cr_solve_lanes(*chain)
         torch.cuda.synchronize()
         for name, t in (("X", X), ("xb", xb)):
@@ -201,14 +352,50 @@ def phase_kernel_vs_plain(kernel):
         if not resid < RESID_TOL[dtype]:
             raise AssertionError(f"kernel {dtype} at P={P} bs={bs} wb={wb} B={nb}: dense residual {resid:.3e}")
         ms = median_ms(lambda: kernel(*chain))
+        split = launch_split(kernel, chain)
         plain_ms = median_ms(lambda: cr_solve_lanes(*chain))
-        log(f"CR kernel {dtype} at P={P} bs={bs} wb={wb} B={nb} (CAP={cap}): max abs err "
-            f"{err:.3e} vs plain, dense residual {resid:.3e} ({lanes}); kernel {ms:.3f} ms, plain "
-            f"{plain_ms:.3f} ms (CUDA events, median of 20); device memory free {free0 / 2**30:.2f} -> "
-            f"{free1 / 2**30:.2f} GiB of {total / 2**30:.2f} across the first launch")
-        results.append(dict(dtype=str(dtype).replace("torch.", ""), P=P, bs=bs, wb=wb, B=nb, cap=cap,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        n = P * bs + wb
+        lib_b = nb if nb * n * n * itemsize <= 8e9 else LIBRARY_MAX_B
+        K, rhs = dense_system(chain, lib_b)
+        lib_err = (torch.linalg.solve(K, rhs)[:, : P * bs, 0] - Xp[..., :lib_b].movedim(-1, 0).reshape(lib_b, -1))
+        library_ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5)
+        del K, rhs
+        bound_ms, bound_by, nbytes, flops = bound(dtype, P, bs, wb, nb)
+        wpb = plan[1][2] // 32
+        form = f"level-parallel, {wpb} warp(s) per block at the first level"
+        log(f"CR kernel {dtype} at P={P} bs={bs} wb={wb} B={nb}: max abs err {err:.3e} vs plain, dense "
+            f"residual {resid:.3e} ({lanes}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
+            f"torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={n}, max diff to plain "
+            f"{lib_err.abs().max().item():.2e}) (CUDA events, median of 20 / 5); bound {1e3 * bound_ms:.3f} us "
+            f"set by {bound_by} ({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), kernel at "
+            f"{100 * bound_ms / ms:.3f}% of it; form: {form}; {grid} CUDA launches per solve; device memory "
+            f"free {free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of {total / 2**30:.2f} across the first "
+            f"launch, {outside / 2**20:.1f} MiB of it outside PyTorch's allocator; device ms per solve by kernel "
+            f"(torch.profiler, 5 solves): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+            + f" (sum {sum(split.values()):.4f})")
+        results.append(dict(dtype=str(dtype).replace("torch.", ""), P=P, bs=bs, wb=wb, B=nb, form=form,
+                            grid_launches_per_solve=grid, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            library_ms=library_ms, library_B=lib_b, bound_us=1e3 * bound_ms, bound_by=bound_by,
+                            mem_outside_allocator_mib=outside / 2**20, device_ms_by_kernel=split))
+        if old is not None:
+            Xo, xbo = old(*chain)
+            torch.cuda.synchronize()
+            old_err = max((Xo - Xp).abs().max().item(), (xbo - xbp).abs().max().item())
+            if not old_err <= TOL[dtype] * scale:
+                raise AssertionError(f"old kernel vs plain {dtype}: max abs err {old_err:.3e} > {TOL[dtype]:.0e} x "
+                                     f"{scale:.3g}")
+            turns = {"old": [], "new": []}
+            for tag in ("old", "new", "new", "old"):
+                fn = (lambda: old(*chain)) if tag == "old" else (lambda: kernel(*chain))
+                turns[tag].append(median_ms(fn, budget_ms=2000))
+            results[-1].update(old_ms=turns["old"], new_ms=turns["new"], old_max_abs_err=old_err)
+            log(f"  old kernel at the same shape: max abs err {old_err:.3e} vs plain; old {turns['old']} "
+                f"ms, new {turns['new']} ms (in turns old, new, new, old; CUDA events, median of up to 20)")
         del chain, X, xb, Xp, xbp
+    tiny = random_chain(P_GD, 1, 0, 1, torch.float64)
+    floor = median_ms(lambda: kernel(*tiny))
+    log(f"launch floor: one solve at P={P_GD} bs=1 wb=0 B=1 ({grid_per_solve(P_GD)} CUDA launches) takes "
+        f"{floor:.4f} ms (CUDA events, median of 20), {1e3 * floor / grid_per_solve(P_GD):.2f} us per launch")
     return results
 
 
@@ -264,7 +451,7 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
             tick_ms.append(start.elapsed_time(end))
             host_ms.append((time.perf_counter() - h0) * 1e3)
         kkt_max = max(kkt_max, kkt.max().item())
-    launches, by_cap = kernel.launches, dict(kernel.launches_by_cap)
+    launches, grid = kernel.launches, kernel.grid_launches
 
     name = "f32" if solve_dtype == torch.float32 else "f64"
     if launches != len(xs) * ITERS:
@@ -278,7 +465,8 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
         f"N={N} x {ITERS} Newton steps; tick {p50:.3f} ms p50 / {p90:.3f} ms p90 (CUDA events), "
         f"host {np.percentile(host_ms, 50):.3f} ms p50 -> {B / (p50 / 1e3):.1f} solves/s; "
         f"max KKT {kkt_max:.3e}; kernel launches {launches}")
-    return dict(path=path_record("mpc_tick_double_integrator", solve_dtype, launches, by_cap, caps=(16,)),
+    return dict(path=path_record("mpc_tick_double_integrator", solve_dtype, launches, grid,
+                                 launches * grid_per_solve(chain_blocks(N))),
                 u0=u0, ctrl=ctrl, states=states)
 
 
@@ -295,25 +483,24 @@ def phase_device_split(name, ctrl, states, xs, ticks=5):
         wall = (time.perf_counter() - t0) / ticks * 1e3
     dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in dev) / ticks / 1e3
-    cr = sum(e.self_device_time_total for e in dev if "cr_solve_kernel" in e.key) / ticks / 1e3
+    is_cr = CR_KERNELS.search
+    cr = sum(e.self_device_time_total for e in dev if is_cr(e.key)) / ticks / 1e3
+    cr_launches = sum(e.count for e in dev if is_cr(e.key)) / ticks
     launches = sum(e.count for e in dev) / ticks
     if not busy > 0:
         raise AssertionError("profiler saw no device time")
     log(f"device split, {name} block solve ({ticks} ticks under torch.profiler): wall {wall:.3f} ms/tick, "
         f"device busy {busy:.3f} ms/tick ({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
-        f"CR kernel {cr:.3f} ms/tick ({100 * cr / busy:.1f}% of busy), other kernels {busy - cr:.3f} ms/tick, "
-        f"{launches:.0f} kernel launches/tick")
+        f"CR kernel {cr:.3f} ms/tick ({100 * cr / busy:.1f}% of busy, {cr_launches:.0f} CUDA launches), other "
+        f"kernels {busy - cr:.3f} ms/tick, {launches:.0f} kernel launches/tick")
 
 
-def path_record(path, dtype, launches, by_cap, caps=None):
-    """One path's launches by the kernel instantiation that ran them; with
-    `caps`, every launch must be on those instantiations."""
-    if sum(by_cap.values()) != launches or not launches:
-        raise AssertionError(f"{path}: launches {launches} split over instantiations as {by_cap}")
-    if caps is not None and any(count for cap, count in by_cap.items() if cap not in caps):
-        raise AssertionError(f"{path}: launches {by_cap}, want all on CAP in {caps}")
-    return dict(path=path, dtype=str(dtype).replace("torch.", ""), launches=launches,
-                by_cap={cap: count for cap, count in by_cap.items() if count})
+def path_record(path, dtype, launches, grid, want_grid):
+    """One path's block solves (`launches`) and CUDA launches, which must be
+    the planned launches of those solves."""
+    if not launches or grid != want_grid:
+        raise AssertionError(f"{path}: {launches} solves, {grid} CUDA launches, planned {want_grid}")
+    return dict(path=path, dtype=str(dtype).replace("torch.", ""), launches=launches, grid_launches=grid)
 
 
 def phase_front_door_default(ct, get_problem, device="cuda"):
@@ -369,7 +556,7 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
         if k >= CP_WARMUP:
             tick_ms.append(start.elapsed_time(end))
         kkt_max, viol_max = max(kkt_max, kkt.max().item()), max(viol_max, viol.max().item())
-    launches, by_cap = kernel.launches, dict(kernel.launches_by_cap)
+    launches, grid = kernel.launches, kernel.grid_launches
 
     if launches != len(xs) * ITERS:
         raise AssertionError(f"cart-pole tick: kernel launched {launches} times, want {len(xs) * ITERS}")
@@ -383,9 +570,9 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
     log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={CP_B} N={CP_N} "
         f"x {ITERS} Newton steps; tick {p50:.3f} ms p50 / {p90:.3f} ms p90 (CUDA events, {CP_TICKS} timed) "
         f"-> {CP_B / (p50 / 1e3):.1f} solves/s; max KKT {kkt_max:.3e}, max violation {viol_max:.3e}, "
-        f"saturated force nodes {100 * sat:.2f}%; kernel launches {launches} {by_cap}")
-    return dict(path=path_record("mpc_tick_cartpole", torch.float64, launches, by_cap, caps=(32,)), docp=docp,
-                warm=warm)
+        f"saturated force nodes {100 * sat:.2f}%; kernel launches {launches} ({grid} CUDA launches)")
+    return dict(path=path_record("mpc_tick_cartpole", torch.float64, launches, grid,
+                                 launches * grid_per_solve(chain_blocks(CP_N))), docp=docp, warm=warm)
 
 
 def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
@@ -408,7 +595,7 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
     res = solver(z0, cl, cu)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, by_cap = kernel.launches, dict(kernel.launches_by_cap)
+    launches, grid = kernel.launches, kernel.grid_launches
     st = solver.stats
 
     if launches != st.kkt_solves:
@@ -423,7 +610,7 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
         f"{wall:.3f} s wall -> {CP_BATCH / wall:.1f} solves/s; converged {100 * ok:.2f}%, median iterations "
         f"{np.median(its):.0f} (max {its.max()}); {st.iterations} batch iterations, {st.kkt_solves} batched KKT "
         f"solves, {st.host_syncs} host syncs ({st.host_syncs / max(st.iterations, 1):.2f} per iteration); "
-        f"kernel launches {launches} {by_cap}")
+        f"kernel launches {launches} ({grid} CUDA launches)")
 
     run = _get_solver(docp, opts)
     for b in CP_CHECK:
@@ -437,18 +624,19 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
                 f"{int(r.iterations)} it, objective {float(r.objective)!r})")
         log(f"  instance {b}: status {int(r.status)}, {int(r.iterations)} iterations, objective "
             f"{float(r.objective):.12g} batched and unbatched (rel diff {rel:.1e})")
-    return dict(path=path_record("batch_solve_cartpole", torch.float64, launches, by_cap, caps=(32,)))
+    return dict(path=path_record("batch_solve_cartpole", torch.float64, launches, grid,
+                                 launches * grid_per_solve(chain_blocks(CP_N))))
 
 
 def timed_solve(kernel, fn):
     """fn() with the kernel counts reset just before; returns (its result,
-    wall s, launches, launches by instantiation)."""
+    wall s, launches, CUDA launches)."""
     kernel.reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t0, kernel.launches, dict(kernel.launches_by_cap)
+    return out, time.perf_counter() - t0, kernel.launches, kernel.grid_launches
 
 
 def phase_goddard(ct, get_problem, kernel, kres):
@@ -458,12 +646,13 @@ def phase_goddard(ct, get_problem, kernel, kres):
     sols, paths = {}, []
     for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         opts = ct.IPMOptions(kkt_solve_dtype=None if tag == "f64" else "f32", **GD_OPTS)
-        sol, wall, launches, by_cap = timed_solve(kernel, lambda: ct.solve(
+        sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve(
             p.ocp, grid_size=GD_N, scheme=GD_SCHEME, init=p.init, options=opts, device="cuda"))
         solves = sol.infos["kkt_block_solves"]
         if launches != solves:
             raise AssertionError(f"goddard {tag}: kernel launched {launches} times, {solves} block solves")
-        paths.append(path_record(f"goddard_gl2_N{GD_N}_{tag}", dtype, launches, by_cap, caps=(32,)))
+        paths.append(path_record(f"goddard_gl2_N{GD_N}_{tag}", dtype, launches, grid,
+                                 launches * grid_per_solve(chain_blocks(GD_N))))
         if not sol.successful:
             raise AssertionError(f"goddard {tag}: {sol.message}")
         if not abs(sol.objective - GD_OBJ) <= 1e-2 * GD_OBJ:
@@ -473,7 +662,7 @@ def phase_goddard(ct, get_problem, kernel, kres):
         share = launches * shape_ms(kres, dtype, P_GD, BS_GD, WB_GD, 1) / 1e3 / wall
         log(f"goddard GL2 N={GD_N} cr, {tag} block solve{' + 2 refinement sweeps + Ruiz' * (tag == 'f32')}: "
             f"status {sol.status}, {sol.iterations} iterations, objective {sol.objective!r}, tf "
-            f"{sol.variable[0]:.6f}, {wall:.2f} s wall; kernel launches {launches} {by_cap} = block solves; "
+            f"{sol.variable[0]:.6f}, {wall:.2f} s wall; kernel launches {launches} = block solves ({grid} CUDA launches); "
             f"kernel share {100 * share:.1f}% (launches x phase-3 ms / wall)")
         sols[tag] = sol
     dobj = abs(sols["f32"].objective - sols["f64"].objective) / abs(sols["f64"].objective)
@@ -486,17 +675,16 @@ def phase_goddard(ct, get_problem, kernel, kres):
 
 def phase_suite(ct, get_problem, kernel):
     """The 10-problem suite under the sweep's options, one ct.solve each."""
-    by_cap, total, rows = {}, 0, []
+    grid_total, total, rows = 0, 0, []
     for name in SUITE:
         p = get_problem(name)
         opts = ct.IPMOptions(**SUITE_OPTS, **SUITE_OVERRIDES.get(name, {}), **SUITE_CARD_OVERRIDES.get(name, {}))
-        sol, wall, launches, caps = timed_solve(kernel, lambda: ct.solve(
+        sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve(
             p.ocp, grid_size=SUITE_N, scheme="trapeze", init=p.init, options=opts, device="cuda"))
         if launches != sol.infos["kkt_block_solves"]:
             raise AssertionError(f"suite {name}: kernel launched {launches} times, "
                                  f"{sol.infos['kkt_block_solves']} block solves")
-        for cap, count in caps.items():
-            by_cap[cap] = by_cap.get(cap, 0) + count
+        grid_total += grid
         total += launches
         ok = bool(sol.successful) and (p.obj is None or abs(sol.objective - p.obj) <= 1e-2 * abs(p.obj))
         ref = SUITE_JAX_CPU[name]
@@ -506,13 +694,15 @@ def phase_suite(ct, get_problem, kernel):
         log(f"  suite {name}{' ' + str(SUITE_CARD_OVERRIDES[name]) if name in SUITE_CARD_OVERRIDES else ''}: "
             f"{'ok' if ok else 'FAIL'} (status {sol.status}), objective {sol.objective!r} (JAX CPU {ref!r}, "
             f"rel diff {rel:.2e}, bound {rtol:g}), {sol.iterations} iterations, {wall:.2f} s wall, "
-            f"kernel launches {launches} {caps}")
+            f"kernel launches {launches} ({grid} CUDA launches)")
     bad = [r for r in rows if not (r[1] and r[2] <= r[3])]
     if bad:
         raise AssertionError(f"suite: not ok or off the JAX CPU objective (name, ok, rel diff, bound): {bad}")
     log(f"suite N={SUITE_N} trapeze, f32 cr + refinement: {len(rows)}/{len(SUITE)} ok, objectives within "
-        f"{max(r[2] for r in rows):.2e} of the JAX package's on the CPU; {total} kernel launches {by_cap}")
-    return path_record(f"suite_trapeze_N{SUITE_N}", torch.float32, total, by_cap)
+        f"{max(r[2] for r in rows):.2e} of the JAX package's on the CPU; {total} kernel launches "
+        f"({grid_total} CUDA launches)")
+    return path_record(f"suite_trapeze_N{SUITE_N}", torch.float32, total, grid_total,
+                       total * grid_per_solve(chain_blocks(SUITE_N)))
 
 
 def phase_grid_continuation(ct, get_problem, kernel, cold):
@@ -521,7 +711,7 @@ def phase_grid_continuation(ct, get_problem, kernel, cold):
 
     p = get_problem("goddard")
     opts = ct.IPMOptions(kkt_solve_dtype="f32", **GD_OPTS)
-    sols, wall, launches, by_cap = timed_solve(kernel, lambda: grid_continuation(
+    sols, wall, launches, grid = timed_solve(kernel, lambda: grid_continuation(
         p.ocp, GC_GRIDS, scheme=GD_SCHEME, options=opts, init=p.init, device="cuda"))
     solves = sum(s.infos["kkt_block_solves"] for s in sols)
     if launches != solves:
@@ -541,34 +731,80 @@ def phase_grid_continuation(ct, get_problem, kernel, cold):
         f"{final.objective!r} (rel diff {rel:.2e} to the JAX package's at N={GC_GRIDS[-1]} on the CPU, "
         f"{abs(final.objective - cold.objective) / abs(cold.objective):.2e} to phase 10's at N={GD_N}), "
         f"iterations {its} vs {cold.iterations} cold at N={GD_N}; {wall:.2f} s wall; kernel launches "
-        f"{launches} {by_cap} = block solves")
+        f"{launches} = block solves ({grid} CUDA launches)")
+    want = sum(s.infos["kkt_block_solves"] * grid_per_solve(chain_blocks(n_)) for s, n_ in zip(sols, GC_GRIDS))
     return path_record(f"grid_continuation_goddard_{'_'.join(map(str, GC_GRIDS))}", torch.float32, launches,
-                       by_cap, caps=(32,))
+                       grid, want)
+
+
+def kernel_name(mangled):
+    """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]
+    m = re.match(r"(\d+)", rest)
+    if not m:
+        return mangled
+    name = rest[m.end():m.end() + int(m.group(1))]
+    tail = rest[m.end() + int(m.group(1)):]
+    return f"{name}<{dict(IfE='float', IdE='double').get(tail[:3], '?')}>"
+
+
+def ptxas_report(build_log):
+    """Registers, stack frame and spills of every kernel in `nvcc -Xptxas -v`'s
+    log; fails on a spill or a stack frame of MAX_STACK_BYTES or more."""
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = dict(kernel=kernel_name(m.group(1)))
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    if not rows or any("stack" not in r or "registers" not in r for r in rows):
+        raise AssertionError(f"ptxas: could not read registers / stack / spills per kernel from the build log")
+    for r in rows:
+        log(f"ptxas {r['kernel']}: {r['registers']} registers, {r['stack']} B stack frame, "
+            f"{r['spill_stores']} B spill stores, {r['spill_loads']} B spill loads")
+    bad = [r for r in rows if r["spill_stores"] or r["spill_loads"] or r["stack"] >= MAX_STACK_BYTES]
+    if bad:
+        raise AssertionError(f"ptxas: spills or a stack frame >= {MAX_STACK_BYTES} B: {bad}")
+    return rows
 
 
 def kernel_entries(kres, paths):
-    """One JSON entry per kernel entry point (f32, f64): its launches on every
-    path, split by instantiation (width cap), with the times and errors that
-    phase 3 measured at each shape of each instantiation."""
+    """One JSON entry per kernel entry point (f32, f64): its launches (block
+    solves) and CUDA launches on every path, and the times, bounds and
+    library times that phase 3 measured at each shape; the entry's own
+    numbers are those of its first shape (the MPC tick)."""
     entries = []
     for dtype in sorted({r["dtype"] for r in kres}):
-        insts = []
-        for cap in sorted({r["cap"] for r in kres if r["dtype"] == dtype}):
-            shapes = [r for r in kres if (r["dtype"], r["cap"]) == (dtype, cap)]
-            on = [dict(path=p["path"], launches=p["by_cap"][cap]) for p in paths
-                  if p["dtype"] == dtype and p["by_cap"].get(cap)]
-            insts.append(dict(cap=cap, launches=sum(p["launches"] for p in on), paths=on, shapes=shapes))
-        first = next(r for r in kres if r["dtype"] == dtype)
+        shapes = [r for r in kres if r["dtype"] == dtype]
+        on = [dict(path=p["path"], launches=p["launches"], grid_launches=p["grid_launches"])
+              for p in paths if p["dtype"] == dtype]
+        first = shapes[0]
         entries.append(dict(
             name=f"cr_solve_{dtype.replace('float', 'f')}", route="cuda",
             source="ctdirect_tpu_torch/csrc/cr_solve.cu", replaces="ctdirect_tpu/solver/pallas_cr.py:281",
-            launches=sum(i["launches"] for i in insts),
-            max_abs_err=max(r["max_abs_err"] for r in kres if r["dtype"] == dtype),
-            ms=first["ms"], plain_ms=first["plain_ms"], instantiations=insts))
+            launches=sum(p["launches"] for p in on), grid_launches=sum(p["grid_launches"] for p in on),
+            max_abs_err=max(r["max_abs_err"] for r in shapes), ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_us"] / 1e3, bound_by=first["bound_by"], library_ms=first["library_ms"],
+            paths=on, shapes=shapes))
     return entries
 
 
 def main():
+    t_start = time.perf_counter()
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--old", type=Path,
+                        help="an earlier cr_solve.cu (one thread per instance) to time against in phase 3")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(1)
@@ -583,11 +819,9 @@ def main():
 
     path, build_s, build_log = kernel.library(verbose=True)
     log(f"built {path.name} in {build_s:.2f} s")
-    for line in build_log.splitlines():
-        if line.strip():
-            log(f"  nvcc: {line.strip()}")
+    ptxas = ptxas_report(build_log)
 
-    kres = phase_kernel_vs_plain(kernel)
+    kres = phase_kernel_vs_plain(kernel, old_kernel(args.old) if args.old else None)
     phase_front_door(ct, get_problem)
 
     rng = np.random.default_rng(0)
@@ -610,8 +844,9 @@ def main():
 
     paths = [main[torch.float32]["path"], main[torch.float64]["path"], tick["path"], batch["path"],
              *goddard["paths"], suite, grid]
+    log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)
-    print(json.dumps({"kernels": kernel_entries(kres, paths)}))
+    print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

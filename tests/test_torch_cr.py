@@ -42,3 +42,19 @@ def test_plain_cr_matches_pallas_interpret():
     Xt, xbt = lanes.cr_solve_lanes(*(t(x, torch.float32) for x in chain))
     np.testing.assert_allclose(n(Xt), np.asarray(Xp), rtol=2e-4, atol=2e-4)
     np.testing.assert_allclose(n(xbt), np.asarray(xbp), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("N,bs,wb", [(1, 4, 3), (13, 5, 7), (16, 19, 8)])
+def test_unbatched_cr_matches_jax_chain_lanes(N, bs, wb):
+    """The port's unbatched `lanes.cr_solve` (the batched CR at B=1, which the
+    kernel's B=1 launches serve on the card) against the JAX package's
+    single-instance chain-in-lanes CR, the unbatched `cr` path there."""
+    from ctdirect_tpu.solver.structured_kkt import _cr_solve_chain_lanes
+
+    A, Bp, E, F, r, rb = (x[..., 0] for x in random_chain_lanes(N, bs, wb, 1, seed=N + bs))
+    args = (A, Bp[: N - 1], E, F, r, rb)
+    Xj, xbj = jax.jit(_cr_solve_chain_lanes)(*(jnp.asarray(x) for x in args))
+    Xt, xbt = lanes.cr_solve(*(t(x) for x in args))
+    assert Xt.shape == (N, bs) and xbt.shape == (wb,)
+    np.testing.assert_allclose(n(Xt), np.asarray(Xj), rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(n(xbt), np.asarray(xbj), rtol=1e-10, atol=1e-10)
