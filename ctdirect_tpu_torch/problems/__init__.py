@@ -1,7 +1,7 @@
 """Fixture OCP library with known reference objectives (PyTorch port of
-`ctdirect_tpu.problems`; each entry returns (ocp, obj, name, init)). Ported
-so far: every fixture of `basic.py`, `goddard.py` and `misc.py`, and
-`cartpole` / `orbit_transfer` of `mpc_fixtures.py`."""
+`ctdirect_tpu.problems`; each entry returns (ocp, obj, name, init)). Every
+fixture of the JAX package is ported: `problem_names()` is the same list in
+both packages."""
 
 from __future__ import annotations
 
@@ -34,4 +34,9 @@ def problem_names():
     return sorted(_REGISTRY)
 
 
-from ctdirect_tpu_torch.problems import basic, goddard, misc, mpc_fixtures  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import basic  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import goddard  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import advanced  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import misc  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import vehicles  # noqa: E402,F401
+from ctdirect_tpu_torch.problems import mpc_fixtures  # noqa: E402,F401

@@ -1,7 +1,7 @@
 """Cart-pole swing-up and planar orbit transfer (torch twins of
 `ctdirect_tpu.problems.mpc_fixtures`; BASELINE.json configs 3 and 4). The
 reference objectives are the JAX package's (see its module docstring for how
-they were certified). `swimmer2` waits for the vehicles fixtures."""
+they were certified), and `swimmer2`, an alias of `vehicles.swimmer`."""
 
 from __future__ import annotations
 
@@ -116,3 +116,14 @@ def orbit_transfer() -> Problem:
 
     init = InitialGuess(state=state0, control=[0.0, 0.02], variable=[tfi])
     return Problem(pre.build(), 0.172258, "orbit_transfer", init=init)
+
+
+@register
+def swimmer2() -> Problem:
+    """Alias of `swimmer`: the reference keeps a second dialect only because
+    its Exa path needs component-wise dynamics; this framework has one
+    transcription, so the variant is mathematically identical."""
+    from ctdirect_tpu_torch.problems.vehicles import swimmer
+
+    p = swimmer()
+    return Problem(p.ocp, p.obj, "swimmer2", init=p.init)

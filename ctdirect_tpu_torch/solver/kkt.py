@@ -21,30 +21,45 @@ the structured path (structured_kkt.py)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 from torch.func import hessian, jacfwd
 
 
+@functools.lru_cache(maxsize=None)
+def _gj_tables(n: int, device: torch.device) -> tuple:
+    """Per column j, the row permutations that swap row j with row j + k
+    ((n - j, n) int64), and the one-hot row masks ((n, n, 1) bool); made
+    once per width and device, read only."""
+    rows = torch.arange(n)
+    swaps = []
+    for j in range(n):
+        k = torch.arange(n - j)
+        perm = rows.repeat(n - j, 1)
+        perm[k, j] = j + k
+        perm[k, j + k] = j
+        swaps.append(perm.to(device))
+    return swaps, torch.eye(n, dtype=torch.bool, device=device)[:, :, None]
+
+
 def _gj_eliminate(M: torch.Tensor, n: int) -> torch.Tensor:
     """Gauss-Jordan elimination WITH partial pivoting on an augmented (n, n+k)
     matrix: the pivot is the first row of maximal |value| at or below the
-    diagonal. Written with selects instead of indexed writes so that it runs
-    under `torch.func.vmap`; the row swap is exact."""
-    rows = torch.arange(n, device=M.device)
+    diagonal. Gathers and selects instead of indexed writes, so that it runs
+    under `torch.func.vmap` and the pivot never goes to the host; the row
+    swap is exact. Eight launches per column (the unbatched structured solve
+    is launch-bound on a GPU)."""
+    swaps, is_row = _gj_tables(n, M.device)
+    m = M.shape[-1]
     for j in range(n):
-        col = torch.where(rows >= j, torch.abs(M[:, j]), -torch.inf)
-        p = torch.argmax(col)
-        is_p = (rows == p)[:, None]
-        is_j = (rows == j)[:, None]
-        rowp = torch.where(is_p, M, 0.0).sum(dim=0)
-        rowj = M[j]
-        M = torch.where(is_j, rowp, torch.where(is_p, rowj, M))
+        k = torch.argmax(torch.abs(M[j:, j]))
+        perm = swaps[j].gather(0, k.reshape(1, 1).expand(1, n))[0]
+        M = M.gather(0, perm[:, None].expand(n, m))
         row = M[j] / M[j, j]
-        colv = torch.where(rows == j, 0.0, M[:, j])
-        M = M - colv[:, None] * row[None, :]
-        M = torch.where(is_j, row, M)
+        # row j's own update is discarded by the select
+        M = torch.where(is_row[j], row, M - M[:, j : j + 1] * row)
     return M
 
 

@@ -10,9 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import box_sample, n
-
-TOL = 1e-12
+from torch_helpers import TOL, assert_same_calls, assert_same_spec
 
 FIXTURES = [
     "double_integrator_mintf",
@@ -33,57 +31,6 @@ FIXTURES = [
 ]
 
 
-def _points(ocp, seed):
-    rng = np.random.default_rng(seed)
-    return dict(
-        t=rng.uniform(0.0, 1.0),
-        x=box_sample(rng, ocp.x_lb, ocp.x_ub),
-        xf=box_sample(rng, ocp.x_lb, ocp.x_ub),
-        u=box_sample(rng, ocp.u_lb, ocp.u_ub),
-        v=box_sample(rng, ocp.v_lb, ocp.v_ub),
-    )
-
-
-def _calls(ocp, p, arr):
-    """Every callable of an OCP evaluated at the point p (arrays built by arr)."""
-    tt, x, xf, u, v = (arr(p[k]) for k in ("t", "x", "xf", "u", "v"))
-    out = {"dynamics": ocp.dynamics(tt, x, u, v)}
-    if ocp.lagrange is not None:
-        out["lagrange"] = ocp.lagrange(tt, x, u, v)
-    if ocp.mayer is not None:
-        out["mayer"] = ocp.mayer(x, xf, v)
-    if ocp.path is not None:
-        out["path"] = ocp.path(tt, x, u, v)
-    if ocp.boundary is not None:
-        out["boundary"] = ocp.boundary(x, xf, v)
-    return out
-
-
-def _assert_same_spec(ot, oj):
-    assert (ot.n, ot.m, ot.q, ot.maximize, ot.name) == (oj.n, oj.m, oj.q, oj.maximize, oj.name)
-    assert (ot.n_path, ot.n_boundary, ot.has_lagrange, ot.has_mayer) == (
-        oj.n_path, oj.n_boundary, oj.has_lagrange, oj.has_mayer)
-    ts = lambda o: (o.time.t0, o.time.tf, o.time.t0_index, o.time.tf_index)  # noqa: E731
-    assert ts(ot) == ts(oj)
-    for attr in ("x_lb", "x_ub", "u_lb", "u_ub", "v_lb", "v_ub", "path_lb", "path_ub",
-                 "boundary_lb", "boundary_ub"):
-        a, b = getattr(ot, attr), getattr(oj, attr)
-        assert (a is None) == (b is None), attr
-        if a is not None:
-            np.testing.assert_array_equal(a, b, err_msg=attr)
-
-
-def _assert_same_calls(ot, oj, seeds=(0, 1, 2)):
-    for seed in seeds:
-        p = _points(oj, seed)
-        ct = _calls(ot, p, lambda a: torch.tensor(np.asarray(a), dtype=torch.float64))
-        cj = _calls(oj, p, lambda a: jnp.asarray(a, dtype=jnp.float64))
-        assert ct.keys() == cj.keys()
-        for key in cj:
-            np.testing.assert_allclose(n(ct[key]), np.asarray(cj[key]), rtol=TOL, atol=TOL,
-                                       err_msg=f"{key}, seed {seed}")
-
-
 @pytest.mark.parametrize("name", FIXTURES)
 def test_fixture_matches_jax(name):
     from ctdirect_tpu import transcribe as transcribe_j
@@ -94,8 +41,8 @@ def test_fixture_matches_jax(name):
     pj, pt = problem_j(name), problem_t(name)
     assert (pt.obj, pt.name) == (pj.obj, pj.name)
     assert (pt.init is None) == (pj.init is None)
-    _assert_same_spec(pt.ocp, pj.ocp)
-    _assert_same_calls(pt.ocp, pj.ocp)
+    assert_same_spec(pt.ocp, pj.ocp)
+    assert_same_calls(pt.ocp, pj.ocp)
     # the initial guess, packed on a grid (callable inits are evaluated there)
     dj = transcribe_j(pj.ocp, grid_size=8, scheme="trapeze")
     dt = transcribe_t(pt.ocp, grid_size=8, scheme="trapeze", device="cpu")
@@ -142,10 +89,10 @@ def test_define_matches_the_preocp_goddard():
     ot = _goddard_by_define(ctt.define, torch.stack, torch.exp)
     oj = _goddard_by_define(cj.define, jnp.array, jnp.exp)
     built = problem_t("goddard").ocp
-    _assert_same_spec(ot, built)
-    _assert_same_calls(ot, problem_j("goddard").ocp)
-    _assert_same_spec(ot, oj)
-    _assert_same_calls(ot, oj)
+    assert_same_spec(ot, built)
+    assert_same_calls(ot, problem_j("goddard").ocp)
+    assert_same_spec(ot, oj)
+    assert_same_calls(ot, oj)
 
 
 def test_define_rejects_a_bad_time_spec():

@@ -13,7 +13,9 @@ PKG = ROOT / "ctdirect_tpu_torch"
 def test_import_leaves_jax_out():
     code = (
         "import sys; import ctdirect_tpu_torch, ctdirect_tpu_torch.parallel, "
-        "ctdirect_tpu_torch.problems, ctdirect_tpu_torch.solver.cr_kernel; "
+        "ctdirect_tpu_torch.problems, ctdirect_tpu_torch.solver.cr_kernel, "
+        "ctdirect_tpu_torch.utils.structure, ctdirect_tpu_torch.utils.profiling, "
+        "ctdirect_tpu_torch.utils.plot; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ctdirect_tpu')]; "
         "assert not bad, bad"
     )

@@ -57,6 +57,85 @@ def box_sample(rng, lb, ub, shape=None):
     return np.where(~lo & hi, ub - np.abs(z), out)
 
 
+# ---- fixture parity (tests/test_torch_fixtures*.py) ----
+
+TOL = 1e-12  # the same formulas in both packages agree at rounding level
+
+
+def fixture_points(ocp, seed, t=None):
+    """A numpy point (t, x, xf, u, v) inside the OCP's boxes, made from a
+    seed; t uniform in [0, 1) unless given."""
+    rng = np.random.default_rng(seed)
+    return dict(
+        t=rng.uniform(0.0, 1.0) if t is None else t,
+        x=box_sample(rng, ocp.x_lb, ocp.x_ub),
+        xf=box_sample(rng, ocp.x_lb, ocp.x_ub),
+        u=box_sample(rng, ocp.u_lb, ocp.u_ub),
+        v=box_sample(rng, ocp.v_lb, ocp.v_ub),
+    )
+
+
+def fixture_calls(ocp, p, arr):
+    """Every callable of an OCP evaluated at the point p (arrays built by arr)."""
+    tt, x, xf, u, v = (arr(p[k]) for k in ("t", "x", "xf", "u", "v"))
+    out = {"dynamics": ocp.dynamics(tt, x, u, v)}
+    if ocp.lagrange is not None:
+        out["lagrange"] = ocp.lagrange(tt, x, u, v)
+    if ocp.mayer is not None:
+        out["mayer"] = ocp.mayer(x, xf, v)
+    if ocp.path is not None:
+        out["path"] = ocp.path(tt, x, u, v)
+    if ocp.boundary is not None:
+        out["boundary"] = ocp.boundary(x, xf, v)
+    return out
+
+
+def assert_same_spec(ot, oj):
+    """Dims, flags, time spec, name and every bound of a port OCP equal the
+    JAX OCP's."""
+    assert (ot.n, ot.m, ot.q, ot.maximize, ot.name) == (oj.n, oj.m, oj.q, oj.maximize, oj.name)
+    assert (ot.n_path, ot.n_boundary, ot.has_lagrange, ot.has_mayer) == (
+        oj.n_path, oj.n_boundary, oj.has_lagrange, oj.has_mayer)
+    ts = lambda o: (o.time.t0, o.time.tf, o.time.t0_index, o.time.tf_index)  # noqa: E731
+    assert ts(ot) == ts(oj)
+    for attr in ("x_lb", "x_ub", "u_lb", "u_ub", "v_lb", "v_ub", "path_lb", "path_ub",
+                 "boundary_lb", "boundary_ub"):
+        a, b = getattr(ot, attr), getattr(oj, attr)
+        assert (a is None) == (b is None), attr
+        if a is not None:
+            np.testing.assert_array_equal(a, b, err_msg=attr)
+
+
+def assert_same_calls(ot, oj, seeds=(0, 1, 2), times=()):
+    """Every callable of the port OCP against the JAX OCP's at the points of
+    `seeds` (t in [0, 1)) and at one more point per t in `times`, to TOL."""
+    import jax.numpy as jnp
+
+    points = [(s, None) for s in seeds] + [(len(seeds) + k, tv) for k, tv in enumerate(times)]
+    for seed, tv in points:
+        p = fixture_points(oj, seed, t=tv)
+        ct = fixture_calls(ot, p, lambda a: torch.tensor(np.asarray(a), dtype=torch.float64))
+        cj = fixture_calls(oj, p, lambda a: jnp.asarray(a, dtype=jnp.float64))
+        assert ct.keys() == cj.keys()
+        for key in cj:
+            np.testing.assert_allclose(n(ct[key]), np.asarray(cj[key]), rtol=TOL, atol=TOL,
+                                       err_msg=f"{key}, seed {seed}, t {p['t']}")
+
+
+def gj_loop(M, n):
+    """Gauss-Jordan with partial pivoting on an augmented numpy (n, n+k)
+    matrix as a plain loop: the first row of maximal |value| at or below the
+    diagonal, an explicit swap (the reference of solver/kkt.py::_gj_eliminate)."""
+    M = M.copy()
+    for j in range(n):
+        p = j + int(np.argmax(np.abs(M[j:, j])))
+        M[[j, p]] = M[[p, j]]
+        row = M[j] / M[j, j]
+        M = M - M[:, j : j + 1] * row
+        M[j] = row
+    return M
+
+
 def random_chain_lanes(P, bs, wb, B, seed=0, dtype=np.float64):
     """Random well-conditioned padded block chain, lane-minor, numpy.
 
