@@ -51,6 +51,27 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      utils.profiling.trace around bolza_freetf whose Chrome trace must hold
      CUDA events of the CR kernel, and utils.structure.verify_structure on a
      CUDA DOCP (N=4) of each fixture this slice ported.
+ 14. the sharded paths, in one gloo world of SHARD_WORLD processes on the one
+     card (ctdirect_tpu_torch.parallel.spmd.launch; NCCL refuses two ranks
+     on one card, so every message is staged through the host, counted):
+     a. the distributed CR (make_sharded_tridiag_solver) at D=2 and D=4 on
+        the tick's chain (P=128, bs=5, wb=7, B=512) and Goddard's (P=256,
+        bs=19, wb=8, B=1), f64, against the plain CR and the kernel on the
+        card (max abs diff <= 1e-10 x scale, lane residuals), ms per solve
+        beside phase 3's kernel ms at the same shape;
+     b. the batch-sharded RTI tick at full width: phase 5's configuration
+        (N=100, B=512 over batch=4, kkt_algorithm="cr", f32 block solve, 3
+        Newton steps) from phase 5's warm state and x0 sequence, 2 warm-up
+        + 8 timed ticks: max KKT < 1e-10, each rank's CR kernel launches =
+        3 x ticks, u0 equal to an unsharded tick of the same rows to 1e-12;
+     c. the 2-D tick, batch=2 x time=2, f64, through InsideTimeShardKKT:
+        max KKT < 1e-10, u0 within 1e-10 of the unsharded f64 tick, the
+        ranks of each time group in agreement;
+     d. BASELINE config 2 (Goddard GL2 N=200, f64, phase 10's options)
+        through ipm_solve(kkt=TimeShardedKKT) over time=2: status 0 and the
+        objective within 1e-8 of phase 10's f64 objective;
+     e. ctdirect_tpu_torch.entry.dryrun_multichip(4, cuda, gloo): all five
+        legs.
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
 (P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
@@ -244,6 +265,15 @@ CI_LONGEST_FIRST = ("orbit_transfer", "algal_bacterial", "quadrotor", "space_shu
 # unperturbed draw on the card (its residuals no worse than the plain
 # version's) and whose structured path passes it.
 CI_CARD_OVERRIDES = {"quadrotor": dict(kkt_mode="structured"), "space_shuttle": dict(kkt_mode="structured")}
+
+
+# phase 14: one gloo world of this many processes on the one card
+SHARD_WORLD = 4
+SHARD_WARMUP, SHARD_TICKS = 2, 8
+SHARD_TIMED_SOLVES = 5
+# 14a's chains: the tick's and Goddard's, f64 (in phase 3's shapes)
+SHARD_CHAINS = {"tick": (P_TICK, BS_TICK, WB_TICK, B), "goddard": (P_GD, BS_GD, WB_GD, 1)}
+SHARD_TIMEOUT = 600.0
 
 
 def ci_fixtures(names):
@@ -556,7 +586,7 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
         f"max KKT {kkt_max:.3e}; kernel launches {launches}")
     return dict(path=path_record("mpc_tick_double_integrator", solve_dtype, launches, grid,
                                  launches * grid_per_solve(chain_blocks(N))),
-                u0=u0, ctrl=ctrl, states=states)
+                u0=u0, ctrl=ctrl, states=states, warm=warm)
 
 
 def phase_device_split(name, ctrl, states, xs, ticks=5):
@@ -1000,6 +1030,207 @@ def phase_fixture_ci(ct, get_problem, problem_names):
     return dict(path=path_record("fixture_ci", torch.float64, total, grid_total, want), rows=rows, elapsed_s=elapsed)
 
 
+def _host_ms(fn):
+    """fn() timed on the host clock to a synchronised end; returns (its
+    result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def shard_rank(world, payload):
+    """Phase 14 on one rank of the gloo world (all ranks on the one card):
+    14a-14d; returns this rank's numbers and outputs (numpy)."""
+    import ctdirect_tpu_torch as ct
+    from torch_helpers import lane_residuals
+
+    from ctdirect_tpu_torch.parallel import MPCController, TimeShardedKKT, broadcast_state
+    from ctdirect_tpu_torch.parallel import make_sharded_tridiag_solver
+    from ctdirect_tpu_torch.problems import get_problem
+    from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched as kernel
+    from ctdirect_tpu_torch.solver.ipm import ipm_solve, make_spec
+    from ctdirect_tpu_torch.solver.lanes import cr_solve_lanes
+    from ctdirect_tpu_torch.solver.resolve import warm_state_from_numpy
+
+    kernel.library(verbose=True)  # the parent's build, from the cache
+    dev = world.device
+    mesh_t = world.mesh((world.size,), ("time",))
+    mesh_b = world.mesh((world.size,), ("batch",))
+    mesh_2d = world.mesh((2, world.size // 2), ("batch", "time"))
+    out = dict(rank=world.rank, dcr=[])
+
+    # 14a: the distributed CR against the plain CR and the kernel
+    for D, mesh in ((2, mesh_2d), (4, mesh_t)):
+        for tag, (P, bs, wb, nb) in SHARD_CHAINS.items():
+            chain = random_chain(P, bs, wb, nb, torch.float64, seed=1)
+            A, Bp, E, F, r, rb = chain
+            solve = make_sharded_tridiag_solver(mesh, "time", P, bs, wb)
+            (X, xb), _ = _host_ms(lambda: solve(A, Bp[:-1], E, F, r, rb))
+            ms = float(np.median([_host_ms(lambda: solve(A, Bp[:-1], E, F, r, rb))[1]
+                                  for _ in range(SHARD_TIMED_SOLVES)]))
+            rec = dict(D=D, chain=tag, ms=ms, messages=solve.axis.messages, staged=solve.axis.staged_messages,
+                       time_rank=solve.axis.rank)
+            if world.rank == 0:
+                Xp, xbp = cr_solve_lanes(*chain)
+                Xk, xbk = kernel(*chain)
+                scale = max(1.0, Xp.abs().max().item(), xbp.abs().max().item())
+                rec.update(err_plain=max((X - Xp).abs().max().item(), (xb - xbp).abs().max().item()),
+                           err_kernel=max((X - Xk).abs().max().item(), (xb - xbk).abs().max().item()),
+                           scale=scale, resid=lane_residuals(chain, X, xb).max().item(),
+                           finite=bool(torch.isfinite(X).all() and torch.isfinite(xb).all()))
+            out["dcr"].append(rec)
+            del chain, A, Bp, E, F, r, rb, X, xb
+
+    p = get_problem("double_integrator_minenergy")
+    docp = ct.transcribe(p.ocp, grid_size=N, scheme="trapeze", device=dev)
+    xs = [torch.tensor(x, dtype=torch.float64, device=dev) for x in payload["xs"]]
+
+    def ticks(ctrl, warm):
+        rows = B // ctrl.axis.size
+        mine = slice(ctrl.axis.rank * rows, (ctrl.axis.rank + 1) * rows)
+        states = broadcast_state(warm_state_from_numpy(warm, dev), rows)
+        tick_ms, kkt_max = [], 0.0
+        kernel.reset_counts()
+        for k, x0 in enumerate(xs):
+            (states, u0, kkt, viol), ms = _host_ms(lambda: ctrl(states, x0[mine]))
+            if k >= SHARD_WARMUP:
+                tick_ms.append(ms)
+            kkt_max = max(kkt_max, kkt.max().item())
+        return dict(rows=(mine.start, mine.stop), u0=u0.cpu().numpy(), kkt_max=kkt_max,
+                    finite=bool(torch.isfinite(u0).all()), tick_ms_p50=float(np.median(tick_ms)),
+                    launches=kernel.launches, grid_launches=kernel.grid_launches)
+
+    # 14b: the batch-sharded RTI tick, f32 block solve through the kernel
+    ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, kkt_algorithm="cr",
+                         kkt_solve_dtype=torch.float32, mesh=mesh_b, device=dev)
+    out["tick"] = ticks(ctrl, payload["warm32"])
+
+    # 14c: the 2-D tick, f64, the KKT solve distributed over the time axis
+    ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, mesh=mesh_2d, time_axis="time",
+                         device=dev)
+    out["tick_2d"] = ticks(ctrl, payload["warm64"])
+    out["tick_2d"].update(messages=ctrl.kkt.axis.messages, staged=ctrl.kkt.axis.staged_messages,
+                          block_solves=ctrl.kkt.block_solves)
+
+    # 14d: BASELINE config 2 through the full IPM over the time axis
+    gp = get_problem("goddard")
+    gd = ct.transcribe(gp.ocp, grid_size=GD_N, scheme=GD_SCHEME, device=dev)
+    kkt = TimeShardedKKT(gd, mesh_2d, axis="time")
+    res, ms = _host_ms(lambda: ipm_solve(
+        gd.nlp_objective, gd.constraints, make_spec(gd._z_lb, gd._z_ub, gd._c_lb, gd._c_ub),
+        gd.initial_guess(gp.init), gd._z_lb, gd._z_ub, gd._c_lb, gd._c_ub, options=ct.IPMOptions(**GD_OPTS),
+        kkt=kkt, device=dev, dtype=gd.dtype))
+    # the IPM minimizes; the user-sense objective of a max problem is its negative
+    objective = -float(res.objective) if gp.ocp.maximize else float(res.objective)
+    out["goddard"] = dict(status=int(res.status), objective=objective, iterations=int(res.iterations),
+                          wall_s=ms / 1e3, block_solves=kkt.block_solves, messages=kkt.axis.messages,
+                          staged=kkt.axis.staged_messages, finite=bool(torch.isfinite(res.z).all()))
+    return out
+
+
+def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
+    """Phase 14: the sharded paths in one gloo world of SHARD_WORLD ranks on
+    the card (14a-14d, shard_rank), then the entry's dry run (14e). Returns
+    the batch-sharded tick's kernel path record."""
+    from ctdirect_tpu_torch.entry import dryrun_multichip
+    from ctdirect_tpu_torch.parallel import broadcast_state
+    from ctdirect_tpu_torch.parallel.spmd import launch
+
+    n_ticks = SHARD_WARMUP + SHARD_TICKS
+    # the unsharded ticks of the same rows from the same state: phase 5's controllers
+    refs = {}
+    for dt, m in main.items():
+        states = broadcast_state(m["warm"], B)
+        for x0 in xs[:n_ticks]:
+            states, u0, _, _ = m["ctrl"](states, x0)
+        refs[dt] = u0.cpu().numpy()
+    payload = dict(xs=[x.cpu().numpy() for x in xs[:n_ticks]],
+                   **{f"warm{32 if dt == torch.float32 else 64}": {f: getattr(m["warm"], f).cpu().numpy()
+                                                                    for f in m["warm"]._fields}
+                      for dt, m in main.items()})
+    t0 = time.perf_counter()
+    ranks = launch(shard_rank, SHARD_WORLD, device="cuda", backend="gloo", args=(payload,), timeout=SHARD_TIMEOUT)
+    log(f"sharded paths: a gloo world of {SHARD_WORLD} ranks on one card (every message staged through the "
+        f"host), {time.perf_counter() - t0:.1f} s")
+
+    # 14a
+    k3 = {tag: shape_ms(kres, torch.float64, *shape) for tag, shape in SHARD_CHAINS.items()}
+    for i, rec in enumerate(ranks[0]["dcr"]):
+        tol = TOL[torch.float64] * rec["scale"]
+        if not (rec["finite"] and rec["err_plain"] <= tol and rec["err_kernel"] <= tol
+                and rec["resid"] < RESID_TOL[torch.float64]):
+            raise AssertionError(f"distributed CR D={rec['D']} on the {rec['chain']} chain: {rec}")
+        msgs = sum(r["dcr"][i]["messages"] for r in ranks)
+        staged = sum(r["dcr"][i]["staged"] for r in ranks)
+        P, bs, wb, nb = SHARD_CHAINS[rec["chain"]]
+        log(f"distributed CR D={rec['D']}, {rec['chain']} chain (P={P} bs={bs} wb={wb} B={nb}, f64): max abs diff "
+            f"{rec['err_plain']:.3e} to the plain CR, {rec['err_kernel']:.3e} to the kernel (scale "
+            f"{rec['scale']:.3g}); lane residual {rec['resid']:.3e}; "
+            f"{', '.join('%.3f' % r['dcr'][i]['ms'] for r in ranks)} ms per solve on ranks 0-{SHARD_WORLD - 1} "
+            f"(host clock, median of {SHARD_TIMED_SOLVES}; phase 3's kernel {k3[rec['chain']]:.4f} ms); "
+            f"world messages {msgs}, staged {staged}")
+
+    # 14b
+    ref = refs[torch.float32]
+    launches = grid = 0
+    for r in ranks:
+        t = r["tick"]
+        lo, hi = t["rows"]
+        du = float(np.abs(t["u0"] - ref[lo:hi]).max())
+        if t["launches"] != n_ticks * ITERS:
+            raise AssertionError(f"sharded tick rank {r['rank']}: kernel launched {t['launches']} times, "
+                                 f"want {n_ticks * ITERS}")
+        if not (t["finite"] and t["kkt_max"] < 1e-10 and du <= 1e-12):
+            raise AssertionError(f"sharded tick rank {r['rank']}: max KKT {t['kkt_max']:.3e}, u0 diff {du:.3e}")
+        launches, grid = launches + t["launches"], grid + t["grid_launches"]
+        log(f"batch-sharded tick rank {r['rank']} (rows {lo}-{hi}, f32 block solve): {n_ticks} ticks, tick "
+            f"{t['tick_ms_p50']:.3f} ms p50 (host clock, {SHARD_TICKS} timed, 4 ranks sharing the card); max KKT "
+            f"{t['kkt_max']:.3e}; u0 vs the unsharded tick {du:.3e}; kernel launches {t['launches']}")
+    path = path_record("mpc_tick_batch_sharded", torch.float32, launches, grid,
+                       launches * grid_per_solve(chain_blocks(N)))
+
+    # 14c
+    ref = refs[torch.float64]
+    for r in ranks:
+        t = r["tick_2d"]
+        lo, hi = t["rows"]
+        du = float(np.abs(t["u0"] - ref[lo:hi]).max())
+        mates = [q["tick_2d"] for q in ranks if q["tick_2d"]["rows"] == t["rows"]]
+        dmate = max(float(np.abs(q["u0"] - t["u0"]).max()) for q in mates)
+        if not (len(mates) == 2 and t["finite"] and t["kkt_max"] < 1e-10 and du <= 1e-10 and dmate <= 1e-13):
+            raise AssertionError(f"2-D tick rank {r['rank']}: max KKT {t['kkt_max']:.3e}, u0 diff {du:.3e}, "
+                                 f"time group diff {dmate:.3e}, {len(mates)} ranks on rows {lo}-{hi}")
+        log(f"2-D tick rank {r['rank']} (batch shard rows {lo}-{hi}, time=2, f64 distributed CR): tick "
+            f"{t['tick_ms_p50']:.3f} ms p50; max KKT {t['kkt_max']:.3e}; u0 vs the unsharded f64 tick {du:.3e}, "
+            f"vs its time-group mate {dmate:.3e}; {t['block_solves']} distributed solves, {t['messages']} "
+            f"messages ({t['staged']} staged)")
+
+    # 14d
+    for r in ranks:
+        g = r["goddard"]
+        rel = abs(g["objective"] - gd_f64_objective) / abs(gd_f64_objective)
+        if not (g["finite"] and g["status"] == 0 and rel <= 1e-8):
+            raise AssertionError(f"goddard over time=2 rank {r['rank']}: {g}, rel diff {rel:.3e} to phase 10")
+    g = ranks[0]["goddard"]
+    log(f"goddard GL2 N={GD_N} f64, ipm_solve(kkt=TimeShardedKKT) over time=2: status {g['status']}, "
+        f"{g['iterations']} iterations, objective {g['objective']!r} (phase 10 f64: {gd_f64_objective!r}), "
+        f"walls {', '.join('%.2f' % r['goddard']['wall_s'] for r in ranks)} s; {g['block_solves']} block solves, "
+        f"{g['messages']} messages on rank 0 ({g['staged']} staged)")
+    msgs = sum(r["dcr"][-1]["messages"] + r["tick_2d"]["messages"] + r["goddard"]["messages"] for r in ranks)
+    staged = sum(r["dcr"][-1]["staged"] + r["tick_2d"]["staged"] + r["goddard"]["staged"] for r in ranks)
+    log(f"sharded paths: world messages {msgs}, staged_messages {staged} (all axes, all ranks)")
+
+    # 14e
+    t0 = time.perf_counter()
+    legs = dryrun_multichip(SHARD_WORLD, device="cuda", backend="gloo", timeout=SHARD_TIMEOUT)
+    if len(legs) != SHARD_WORLD or any(set(r) != {"batch", "time", "tick", "boxes", "tick_2d"} for r in legs):
+        raise AssertionError("dryrun_multichip: a leg is missing")
+    log(f"dryrun_multichip({SHARD_WORLD}, cuda, gloo): all five legs, {time.perf_counter() - t0:.1f} s")
+    return path
+
+
 def kernel_name(mangled):
     """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`."""
     m = re.match(r"_ZN(\d+)", mangled)
@@ -1118,9 +1349,11 @@ def main():
     phase_done("phases 10-12")
     fixture_ci = phase_fixture_ci(ct, get_problem, problem_names)["path"]
     phase_done("phase 13")
+    sharded = phase_sharded(kernel, kres, main, goddard["sols"]["f64"].objective, xs)
+    phase_done("phase 14")
 
     paths = [main[torch.float32]["path"], main[torch.float64]["path"], tick["path"], batch["path"],
-             *goddard["paths"], suite, grid, fixture_ci]
+             *goddard["paths"], suite, grid, fixture_ci, sharded]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))

@@ -8,7 +8,13 @@ zu). The solve is `solver/ipm.py::ipm_solve_batched`: one batched IPM loop in
 which converged instances keep their values while the others iterate, so the
 batch completes when the slowest instance does. Every KKT solve of a loop trip
 is one batched call; with `kkt_mode="cr"` on the card that is one launch of
-the CR kernel for the whole batch."""
+the CR kernel for the whole batch.
+
+Sharding (`mesh=`, `batch_axis=`): every rank of the world (SPMD, one
+process per rank; parallel/spmd.py) is given the same global batch, solves
+its own rows [i B/D, (i+1) B/D) (i its rank on the batch axis, D the axis
+size) and hands back the global result, gathered with one all_gather per
+output field at the end of the call: no collective inside the solve."""
 
 from __future__ import annotations
 
@@ -16,13 +22,15 @@ from typing import Optional
 
 import torch
 
+from ctdirect_tpu_torch.parallel.time_shard import ShardAxis
 from ctdirect_tpu_torch.solver.interface import make_kkt
-from ctdirect_tpu_torch.solver.ipm import BatchStats, IPMOptions, ipm_solve_batched, make_spec
+from ctdirect_tpu_torch.solver.ipm import BatchStats, IPMOptions, IPMResult, ipm_solve_batched, make_spec
 from ctdirect_tpu_torch.transcription.docp import DOCP
 
 
 class BatchSolver:
-    """Batched solver for one DOCP structure, on one device.
+    """Batched solver for one DOCP structure, on one device (or, with
+    `mesh`, on every rank of its `batch_axis`).
 
     Call signature: solver(z0_batch, cl_batch, cu_batch, zl_batch, zu_batch)
     -> IPMResult with a leading batch axis on every field. Bounds default to
@@ -31,24 +39,23 @@ class BatchSolver:
     The KKT operator follows `options.kkt_mode` as `solve` does ("cr" is the
     cyclic-reduction StructuredKKT; the JAX package's BatchSolver passes no
     operator for "cr" and so solves it densely). `stats` counts the batched
-    KKT solves, host reads and outer iterations over all calls. `device` and
-    `dtype` must match the DOCP's."""
+    KKT solves, host reads and outer iterations over all calls (of this
+    rank's rows under a mesh). `device` and `dtype` must match the DOCP's.
+    Under a mesh the batch must split evenly over the axis: ValueError
+    otherwise, where the JAX package accepts an uneven split."""
 
     def __init__(
         self,
         docp: DOCP,
         options: IPMOptions = IPMOptions(),
         mesh=None,
+        batch_axis: str = "batch",
         kkt: Optional[object] = None,
         *,
         device,
         dtype: torch.dtype = torch.float64,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded batched solves (mesh=) are not ported to ctdirect_tpu_torch "
-                "yet (ROADMAP.md, queue 1: sharding)"
-            )
+        self.axis = None if mesh is None else ShardAxis(mesh, batch_axis)
         device = torch.device(device)
         if device != docp.device or dtype != docp.dtype:
             raise ValueError(
@@ -68,14 +75,21 @@ class BatchSolver:
         docp = self.docp
         z0 = docp.tensor(z0_batch)
         B = z0.shape[0]
+        rows = slice(0, B)
+        if self.axis is not None:
+            D = self.axis.size
+            if B % D:
+                raise ValueError(f"a batch of {B} does not split over the {D} ranks of axis {self.axis.name!r}")
+            rows = slice(self.axis.rank * (B // D), (self.axis.rank + 1) * (B // D))
+            z0 = z0[rows]
 
         def bc(given, default):
             if given is not None:
-                return docp.tensor(given)
+                return docp.tensor(given)[rows]
             default = docp.tensor(default)
-            return default.expand((B,) + default.shape)
+            return default.expand((z0.shape[0],) + default.shape)
 
-        return ipm_solve_batched(
+        res = ipm_solve_batched(
             docp.nlp_objective,
             docp.constraints,
             self.spec,
@@ -90,8 +104,18 @@ class BatchSolver:
             dtype=self.dtype,
             stats=self.stats,
         )
+        if self.axis is None:
+            return res
+        return IPMResult(*(self._gather(x) for x in res))
+
+    def _gather(self, x):
+        # bool tensors travel as uint8
+        if x.dtype == torch.bool:
+            return self.axis.all_gather(x.to(torch.uint8)).to(torch.bool)
+        return self.axis.all_gather(x)
 
 
-def make_batch_solver(docp, options=IPMOptions(), mesh=None, kkt=None, *, device,
+def make_batch_solver(docp, options=IPMOptions(), mesh=None, kkt=None, *, batch_axis: str = "batch", device,
                       dtype: torch.dtype = torch.float64) -> BatchSolver:
-    return BatchSolver(docp, options=options, mesh=mesh, kkt=kkt, device=device, dtype=dtype)
+    return BatchSolver(docp, options=options, mesh=mesh, batch_axis=batch_axis, kkt=kkt, device=device,
+                       dtype=dtype)

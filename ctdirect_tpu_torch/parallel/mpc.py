@@ -1,5 +1,5 @@
 """Batched receding-horizon MPC controller (PyTorch port of
-`ctdirect_tpu.parallel.mpc`, single device).
+`ctdirect_tpu.parallel.mpc`).
 
 Per tick, every batched instance gets its measured state x0 injected through
 the boundary-constraint right-hand sides, the previous optimal state is
@@ -7,7 +7,15 @@ SHIFTED one step (the classic MPC warm start), and a fixed-iteration resolve
 (solver/resolve.py) returns the new plan. The tick is `torch.func.vmap` of the
 single-instance tick; inside it, each Newton step's block solve reaches the
 batched CR (the hand-written CUDA kernel on the card) once for the whole
-batch through the dispatch in solver/lanes.py."""
+batch through the dispatch in solver/lanes.py.
+
+Sharded ticks (SPMD, one process per rank; parallel/spmd.py launches such
+worlds): with `mesh` and `batch_axis`, rank i of the batch axis holds and
+ticks rows [i B/D, (i+1) B/D) of the global batch, with no collective on the
+hot path. With a `time_axis` too (the 2-D batch x time mesh), the state is
+replicated over the time axis: every rank of a time group ticks the same
+rows, and only the KKT block solve is distributed over that group
+(parallel/time_shard.py::InsideTimeShardKKT)."""
 
 from __future__ import annotations
 
@@ -17,6 +25,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from ctdirect_tpu_torch.parallel.time_shard import InsideTimeShardKKT, ShardAxis
 from ctdirect_tpu_torch.solver.ipm import IPMOptions, make_spec
 from ctdirect_tpu_torch.solver.resolve import (
     WarmState,
@@ -58,7 +67,8 @@ def shift_state(docp: DOCP, st: WarmState) -> WarmState:
 
 
 class MPCController:
-    """Batched MPC loop over one DOCP structure, on one device.
+    """Batched MPC loop over one DOCP structure, on one device or on a rank
+    of a mesh.
 
     The initial-state boundary rows to retarget are located via
     `x0_boundary_rows`: indices (into the boundary-constraint rows) holding the
@@ -77,7 +87,9 @@ class MPCController:
         kkt_equilibrate: bool = False,
         kkt_assemble_dtype: Optional[torch.dtype] = None,
         mesh=None,
+        batch_axis: str = "batch",
         time_axis: Optional[str] = None,
+        kkt_factory=None,
         *,
         device,
         dtype: torch.dtype = torch.float64,
@@ -85,13 +97,17 @@ class MPCController:
         """kkt_solve_dtype=torch.float32 runs the block solve in f32 inside
         the f64 Newton loop (the bench configuration); kkt_assemble_dtype=
         torch.float32 also runs the operator's prepare and assembly in f32
-        while the Newton residuals stay in the DOCP's dtype. mesh/time_axis
-        (the JAX package's sharded ticks) are not ported yet."""
-        if mesh is not None or time_axis is not None:
-            raise NotImplementedError(
-                "sharded MPC ticks (mesh=/time_axis=) are not ported to "
-                "ctdirect_tpu_torch yet (ROADMAP.md, queue 1: time sharding)"
-            )
+        while the Newton residuals stay in the DOCP's dtype.
+
+        mesh + batch_axis: this rank ticks its own rows of the batch
+        (data-parallel tick); the caller passes and gets back those rows.
+        mesh + batch_axis + time_axis: 2-D mesh; each instance's KKT chain is
+        solved by the distributed CR over time_axis, the rest replicated
+        over it. kkt_factory(docp) -> KKT operator overrides the default
+        construction (first the factory, then InsideTimeShardKKT with a
+        time_axis, else StructuredKKT)."""
+        if time_axis is not None and mesh is None:
+            raise ValueError("time_axis= needs a mesh")
         device = torch.device(device)
         if device != docp.device or dtype != docp.dtype:
             raise ValueError(
@@ -101,15 +117,22 @@ class MPCController:
         self.device, self.dtype = device, dtype
         self.shift = shift
         spec = self._spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
-        # equilibration default OFF on the tick: the warm resolve is mildly
-        # conditioned by construction
-        self.kkt = StructuredKKT(
-            docp,
-            algorithm=kkt_algorithm,
-            solve_dtype=kkt_solve_dtype,
-            equilibrate=kkt_equilibrate,
-            assemble_dtype=kkt_assemble_dtype,
-        )
+        self.axis = None if mesh is None else ShardAxis(mesh, batch_axis)
+        if kkt_factory is not None:
+            self.kkt = kkt_factory(docp)
+        elif time_axis is not None:
+            taxis = ShardAxis(mesh, time_axis)
+            self.kkt = InsideTimeShardKKT(docp, taxis, taxis.size, solve_dtype=kkt_solve_dtype)
+        else:
+            # equilibration default OFF on the tick: the warm resolve is
+            # mildly conditioned by construction
+            self.kkt = StructuredKKT(
+                docp,
+                algorithm=kkt_algorithm,
+                solve_dtype=kkt_solve_dtype,
+                equilibrate=kkt_equilibrate,
+                assemble_dtype=kkt_assemble_dtype,
+            )
         resolve = make_resolver(
             docp.nlp_objective,
             docp.constraints,
@@ -141,7 +164,8 @@ class MPCController:
 
     def __call__(self, states: WarmState, x0_batch):
         """Advance all controllers one tick. states: batched WarmState;
-        x0_batch: (B, len(rows)). Returns (new_states, u0, kkt_err, viol)."""
+        x0_batch: (B, len(rows)) (under a mesh: this rank's rows). Returns
+        (new_states, u0, kkt_err, viol)."""
         return self._tick(states, x0_batch)
 
     def cold_start(self, options: Optional[IPMOptions] = None, init=None) -> WarmState:

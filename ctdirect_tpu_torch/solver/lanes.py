@@ -13,7 +13,8 @@ last, pads the chain to a power of two and calls the batched CR — so the
 batched MPC tick (`torch.func.vmap` of the single-instance tick) reaches the
 kernel once per Newton step. Unbatched calls run the same batched CR at B=1.
 On CPU tensors both routes run the plain version; on CUDA tensors both
-launch the kernel.
+launch the kernel. The dispatch itself is `lane_solve(engine, ...)`, which
+also carries the time-sharded distributed CR (parallel/time_shard.py).
 
 Shapes (lane-minor): A (P, bs, bs, B) diagonal blocks, Bp (P, bs, bs, B)
 super-diagonal couplings (Bp[i]: block i -> i+1, last slot zero), E (P, bs,
@@ -162,13 +163,15 @@ def cr_solve_lanes(A, Bp, E, F, r, rb):
     return X, xb
 
 
-def _pad_pow2_lanes(A, B_, E, r):
-    """Pad to a power of two, lane-minor layout: A (N, bs, bs, B) etc. Padding
-    is identity A, zero couplings/rhs; Bp gets its zero last slot."""
+def _pad_pow2_lanes(A, B_, E, r, P=None):
+    """Pad to P blocks (default: the next power of two), lane-minor layout:
+    A (N, bs, bs, B) etc. Padding is identity A, zero couplings/rhs; Bp gets
+    its zero last slot."""
     N, bs, _, B = A.shape
-    P = 1
-    while P < N:
-        P *= 2
+    if P is None:
+        P = 1
+        while P < N:
+            P *= 2
     pad = P - N
     if pad:
         eye = torch.eye(bs, dtype=A.dtype, device=A.device)[..., None]
@@ -198,14 +201,17 @@ def _cr_chain_lanes(A, B_, E, F, r, rb):
     return X[:N], xb
 
 
-class _CRSolve(torch.autograd.Function):
+class _LaneSolve(torch.autograd.Function):
+    """The vmap-aware call of a lane-minor chain solver `engine` (a
+    non-tensor input): unbatched, the engine at B=1; under vmap, the rule
+    moves each operand's batch axis last and calls the engine once for the
+    whole batch."""
+
     generate_vmap_rule = False
 
     @staticmethod
-    def forward(A, B_, E, F, r, rb):
-        # unbatched: the batched engine at B=1 (same math as the JAX
-        # package's chain-in-lanes CR)
-        X, xb = _cr_chain_lanes(*(x[..., None] for x in (A, B_, E, F, r, rb)))
+    def forward(A, B_, E, F, r, rb, engine):
+        X, xb = engine(*(x[..., None] for x in (A, B_, E, F, r, rb)))
         return X[..., 0], xb[..., 0]
 
     @staticmethod
@@ -213,7 +219,7 @@ class _CRSolve(torch.autograd.Function):
         pass
 
     @staticmethod
-    def vmap(info, in_dims, A, B_, E, F, r, rb):
+    def vmap(info, in_dims, A, B_, E, F, r, rb, engine):
         # move each batched operand's batch axis LAST; broadcast the others
         def lanes(x, d):
             if d is None:
@@ -221,8 +227,16 @@ class _CRSolve(torch.autograd.Function):
             return x.movedim(d, -1)
 
         args = [lanes(x, d) for x, d in zip((A, B_, E, F, r, rb), in_dims)]
-        X, xb = _cr_chain_lanes(*args)
+        X, xb = engine(*args)
         return (X.movedim(-1, 0), xb.movedim(-1, 0)), (0, 0)
+
+
+def lane_solve(engine, A, B_, E, F, r, rb):
+    """Solve one block chain (shapes as `cr_solve`) with `engine`, a solver
+    of lane-minor chains of any length N (engine(A, B_, E, F, r, rb) with a
+    trailing batch axis -> (X, xb)). Under `torch.func.vmap` the engine sees
+    the whole batch at once and never a batched tensor."""
+    return _LaneSolve.apply(A, B_, E, F, r, rb, engine)
 
 
 def cr_solve(A, B_, E, F, r, rb):
@@ -230,5 +244,6 @@ def cr_solve(A, B_, E, F, r, rb):
 
     Single instance: A (N, bs, bs), B_ (N-1, bs, bs), E (N, bs, wb),
     F (wb, wb), r (N, bs), rb (wb) -> (X (N, bs), xb (wb)). Under
-    `torch.func.vmap` the whole batch goes to one batched CR call."""
-    return _CRSolve.apply(A, B_, E, F, r, rb)
+    `torch.func.vmap` the whole batch goes to one batched CR call (the same
+    math as the JAX package's chain-in-lanes CR at B=1 when unbatched)."""
+    return lane_solve(_cr_chain_lanes, A, B_, E, F, r, rb)

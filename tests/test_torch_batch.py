@@ -9,6 +9,8 @@ in one case, in their control box (zl/zu): they need different iteration
 counts, and only some of them engage the regularization ladder, so a
 batch-wide condition standing in for a per-instance one shows up here."""
 
+from types import SimpleNamespace
+
 import pytest
 import torch
 
@@ -24,7 +26,11 @@ def test_batch_solver_rejects_mesh_and_mismatched_device():
     from torch_helpers import torch_docp
 
     d = torch_docp(grid_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh without the named batch axis (the split B % D != 0 is refused in
+    # tests/test_torch_time_shard.py::test_refusals, in a world of 3)
+    with pytest.raises(ValueError, match="no axis 'batch'"):
         BatchSolver(d, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="no axis 'rows'"):
+        BatchSolver(d, mesh=SimpleNamespace(mesh_dim_names=("batch",)), batch_axis="rows", device="cpu")
     with pytest.raises(ValueError, match="DOCP is on"):
         make_batch_solver(d, device="cpu", dtype=torch.float32)

@@ -4,6 +4,8 @@ from ONE JAX cold-start state so that tick parity does not depend on IPM
 parity (double integrator, trapeze, N=12, B=3, float64). After
 tests/test_lanes.py::test_mpc_resolve_uses_lane_path."""
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -103,8 +105,13 @@ def test_controller_rejects_unported_and_mismatched_options():
     from ctdirect_tpu_torch.parallel.mpc import MPCController
 
     d = torch_docp(grid_size=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh without the named batch axis, a time axis without a mesh
+    with pytest.raises(ValueError, match="no axis 'batch'"):
         MPCController(d, [0, 1], mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="no axis 'rows'"):
+        MPCController(d, [0, 1], mesh=SimpleNamespace(mesh_dim_names=("batch",)), batch_axis="rows", device="cpu")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        MPCController(d, [0, 1], time_axis="time", device="cpu")
     with pytest.raises(ValueError, match="DOCP is on"):
         MPCController(d, [0, 1], device="cpu", dtype=torch.float32)
     # Ruiz and the f32 assembly are ported: they reach the tick's operator

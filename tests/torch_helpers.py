@@ -284,3 +284,141 @@ def check_batch_solver_matches_jax(case):
     np.testing.assert_allclose(n(rt.z), np.asarray(rj.z), rtol=0, atol=1e-8)
     for field in rt._fields:  # a leading batch axis on every field
         assert n(getattr(rt, field)).shape[0] == BATCH, field
+
+
+# ---- sharded paths in gloo worlds (tests/test_torch_time_shard.py,
+# tests/test_torch_parallel_mesh.py) ----
+# The worlds are spawned processes (ctdirect_tpu_torch.parallel.spmd.launch):
+# their workers live here, in an importable module that imports no JAX, and
+# take and return numpy only.
+
+WORLD = 4  # ranks of the test worlds
+WORLD_TIMEOUT = 240.0  # seconds a test world may take before it is stopped
+
+
+def _jax_loaded():
+    import sys
+
+    return any(m.split(".")[0] in ("jax", "jaxlib", "ctdirect_tpu") for m in sys.modules)
+
+
+def spmd_time_shard_world(world, chains, kkt_case, ipm_case):
+    """One gloo world for tests/test_torch_time_shard.py: the distributed CR
+    of each chain (D, N, bs, wb, B, seed) through make_sharded_tridiag_solver,
+    beside the port's unsharded cr_solve_lanes; TimeShardedKKT.solve at D=2
+    and 4 on kkt_case's seeded inputs; a full IPM with TimeShardedKKT at D=4
+    on ipm_case."""
+    from ctdirect_tpu_torch.parallel.time_shard import TimeShardedKKT, make_sharded_tridiag_solver
+    from ctdirect_tpu_torch.solver.ipm import IPMOptions, ipm_solve, make_spec
+    from ctdirect_tpu_torch.solver.lanes import _pad_pow2_lanes, cr_solve_lanes
+
+    torch.set_num_threads(1)
+    # D=4 over a 1-D mesh, D=2 over the time axis of a 2 x 2 mesh (every rank
+    # builds the same meshes in the same order)
+    meshes = {4: world.mesh((4,), ("time",)), 2: world.mesh((2, 2), ("batch", "time"))}
+    out = dict(chains=[], kkt={})
+    for D, N, bs, wb, B, seed in chains:
+        A, Bp, E, F, r, rb = (torch.tensor(x) for x in random_chain_lanes(N, bs, wb, B, seed=seed))
+        solve = make_sharded_tridiag_solver(meshes[D], "time", N, bs, wb)
+        X, xb = solve(A, Bp[:-1], E, F, r, rb)
+        Ap, Bpp, Ep, rp = _pad_pow2_lanes(A, Bp[:-1], E, r)
+        Xp, xbp = cr_solve_lanes(Ap, Bpp, Ep, F, rp, rb)
+        out["chains"].append(dict(X=n(X), xb=n(xb), X_plain=n(Xp[:N]), xb_plain=n(xbp), rank=solve.axis.rank,
+                                  messages=solve.axis.messages, staged=solve.axis.staged_messages))
+
+    d = torch_docp(kkt_case["name"], grid_size=kkt_case["grid_size"], scheme=kkt_case["scheme"])
+    for D in (2, 4):
+        kkt = TimeShardedKKT(d, meshes[D], axis="time")
+        inp = {k: t(v) for k, v in kkt_case["inputs"].items()}
+        data = kkt.prepare(inp["z"], inp["lam"], t(1.0), torch.ones(d.nc, dtype=torch.float64))
+        dz, dlam = kkt.solve(data, inp["sigma"], inp["Drow"], 1e-6, 1e-7, inp["rz"], inp["rp"])
+        out["kkt"][D] = dict(dz=n(dz), dlam=n(dlam), block_solves=kkt.block_solves)
+
+    d = torch_docp(ipm_case["name"], grid_size=ipm_case["grid_size"], scheme=ipm_case["scheme"])
+    kkt = TimeShardedKKT(d, meshes[4], axis="time")
+    res = ipm_solve(d.nlp_objective, d.constraints, make_spec(d._z_lb, d._z_ub, d._c_lb, d._c_ub),
+                    d.initial_guess(None), d._z_lb, d._z_ub, d._c_lb, d._c_ub,
+                    options=IPMOptions(**ipm_case["options"]), kkt=kkt, device="cpu")
+    out["ipm"] = dict(status=int(res.status), objective=float(res.objective), iterations=int(res.iterations),
+                      block_solves=kkt.block_solves)
+    out["jax_loaded"] = _jax_loaded()
+    return out
+
+
+def spmd_refusals_world(world, N):
+    """A world whose size is not a power of two: every time-sharded
+    constructor and a BatchSolver call with B % D != 0 must raise
+    ValueError. Returns the messages."""
+    from ctdirect_tpu_torch.parallel import BatchSolver, TimeShardedKKT, make_sharded_tridiag_solver
+
+    torch.set_num_threads(1)
+    mesh = world.mesh((world.size,), ("time",))
+    mesh_b = world.mesh((world.size,), ("batch",))
+    d = torch_docp(grid_size=N)
+    out = {}
+    for what, call in (
+        ("tridiag", lambda: make_sharded_tridiag_solver(mesh, "time", N, 5, 7)),
+        ("kkt", lambda: TimeShardedKKT(d, mesh, axis="time")),
+        ("batch", lambda: BatchSolver(d, mesh=mesh_b, device="cpu")(
+            np.tile(d.initial_guess(None), (world.size + 1, 1)))),
+    ):
+        try:
+            call()
+            out[what] = None
+        except ValueError as e:
+            out[what] = str(e)
+    return out
+
+
+def spmd_mesh_world(world, batch_case, tick_case):
+    """One gloo world for tests/test_torch_parallel_mesh.py: a BatchSolver
+    over a 1-D batch mesh of the world (the global batch in and out), with
+    and without per-instance boxes; then, from one warm state, two MPC ticks
+    on the 1-D batch mesh (this rank's rows) and two on the 2 x 2 batch x
+    time mesh (this batch shard's rows, the KKT solve over the time axis)."""
+    from ctdirect_tpu_torch.parallel import BatchSolver, MPCController, broadcast_state
+    from ctdirect_tpu_torch.solver.ipm import IPMOptions
+    from ctdirect_tpu_torch.solver.resolve import warm_state_from_numpy
+
+    torch.set_num_threads(1)
+    mesh_b = world.mesh((world.size,), ("batch",))
+    mesh_2d = world.mesh((2, world.size // 2), ("batch", "time"))
+    out = {}
+    d = torch_docp(grid_size=batch_case["grid_size"])
+    solver = BatchSolver(d, IPMOptions(**batch_case["options"]), mesh=mesh_b, device="cpu")
+    for key, boxes in (("batch", {}), ("boxes", dict(zl_batch=batch_case["zl"], zu_batch=batch_case["zu"]))):
+        res = solver(batch_case["z0"], **boxes)
+        out[key] = {f: n(getattr(res, f)) for f in ("z", "objective", "status", "iterations")}
+
+    d = torch_docp(grid_size=tick_case["grid_size"])
+    warm = warm_state_from_numpy(tick_case["warm"], "cpu")
+    x0 = tick_case["x0"]
+    for key, mesh, kw in (("tick", mesh_b, dict(kkt_algorithm="cr")), ("tick_2d", mesh_2d, dict(time_axis="time"))):
+        ctrl = MPCController(d, x0_boundary_rows=[0, 1], resolve_iters=tick_case["iters"], mesh=mesh,
+                             device="cpu", **kw)
+        rows = x0.shape[0] // ctrl.axis.size
+        mine = slice(ctrl.axis.rank * rows, (ctrl.axis.rank + 1) * rows)
+        states = broadcast_state(warm, rows)
+        for _ in range(tick_case["ticks"]):
+            states, u0, kkt, viol = ctrl(states, t(x0[mine]))
+        out[key] = dict(rows=(mine.start, mine.stop), states=[n(a) for a in states], u0=n(u0), kkt=n(kkt),
+                        viol=n(viol), block_solves=ctrl.kkt.block_solves)
+    out["jax_loaded"] = _jax_loaded()
+    return out
+
+
+def spmd_failing_world(world):
+    """Rank 1 raises while the others wait in a collective for it."""
+    import torch.distributed as dist
+
+    if world.rank == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.all_reduce(torch.ones(1))
+    return world.rank
+
+
+def spmd_sleeping_world(world, seconds):
+    """Every rank outlives its world's time limit."""
+    import time
+
+    time.sleep(seconds)
