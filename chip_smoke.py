@@ -12,16 +12,28 @@ Phases (any failure raises and the script exits non-zero, printing no result):
   4. the front door: ct.solve(double integrator, N=100, trapeze) on the card
      against its analytic oracles;
   5. the main path: cold start + 512 warm-started MPC controllers at N=100,
-     3 Newton steps per tick, with the f32 and then the f64 block solve; the
+     3 Newton steps per tick, with the f32 and then the f64 block solve, run
+     twice from the same warm state over the same x0 sequence: the eager
+     tick (`MPCController.eager`) and the tick as the controller runs it on
+     the card, a replayed CUDA graph (captured by one call before the
+     counted run; its capture time and pool printed). In each run the
      kernel's launch count must grow by exactly ticks x 3 and max KKT stay
-     below 1e-10;
-  6. the device split of 5 more ticks of each (torch.profiler): device busy
-     and idle share, the CR kernel's share, kernel launches per tick;
+     below 1e-10; the replay's u0 and KKT (every tick) and final states must
+     equal the eager tick's within GRAPH_TOL; p50 / p90 and solves/s of both;
+  6. the device split of 5 more ticks of each, eager and replayed
+     (torch.profiler): device busy and idle share, the CR kernel's share,
+     kernel launches per tick, and the CR kernel's CUDA launches per tick as
+     the profiler sees them, which must be the plan (3 x (3 + 3 log2 128) =
+     72): the witness that the graph runs the kernel apart from the
+     wrapper's counts; then the eager tick's device ms by stage (the KKT
+     operator's prepare, assemble, block solve and the CR kernel, the rest);
   7. the front door with the default scheme (midpoint): ct.solve(double
      integrator, N=100) with no scheme= against the same analytic oracles;
   8. the cart-pole MPC tick (BASELINE config 3): cold start + 1024 warm-started
      controllers at N=60 trapeze, 3 Newton steps, f64 block solve; 2 warm-up
-     + 10 timed ticks, launches = ticks x 3;
+     + 10 timed ticks, eager and replayed as in phase 5 (launches = ticks x
+     3, the replay held to the eager tick), then phase 6's split over 3
+     ticks (63 CR launches per tick);
   9. batched cart-pole scenario solves: BatchSolver (kkt_mode="cr", tol 1e-6,
      30 iterations at most) over 1024 instances with per-instance x0, from the
      cold-start solution; launches = the batched KKT solves, three instances
@@ -61,12 +73,15 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         beside phase 3's kernel ms at the same shape;
      b. the batch-sharded RTI tick at full width: phase 5's configuration
         (N=100, B=512 over batch=4, kkt_algorithm="cr", f32 block solve, 3
-        Newton steps) from phase 5's warm state and x0 sequence, 2 warm-up
-        + 8 timed ticks: max KKT < 1e-10, each rank's CR kernel launches =
-        3 x ticks, u0 equal to an unsharded tick of the same rows to 1e-12;
-     c. the 2-D tick, batch=2 x time=2, f64, through InsideTimeShardKKT:
-        max KKT < 1e-10, u0 within 1e-10 of the unsharded f64 tick, the
-        ranks of each time group in agreement;
+        Newton steps) from phase 5's warm state and x0 sequence, each rank
+        replaying its own CUDA graph (captured by one call before the
+        counted run), 2 warm-up + 8 timed ticks: max KKT < 1e-10, each
+        rank's CR kernel launches = 3 x ticks, u0 equal to an unsharded tick
+        of the same rows to 1e-12;
+     c. the 2-D tick, batch=2 x time=2, f64, through InsideTimeShardKKT,
+        eager (its halos are staged through the host; it must capture
+        nothing): max KKT < 1e-10, u0 within 1e-10 of the unsharded f64
+        tick, the ranks of each time group in agreement;
      d. BASELINE config 2 (Goddard GL2 N=200, f64, phase 10's options)
         through ipm_solve(kkt=TimeShardedKKT) over time=2: status 0 and the
         objective within 1e-8 of phase 10's f64 objective;
@@ -120,6 +135,10 @@ B, N, ITERS = 512, 100, 3
 P_TICK, BS_TICK, WB_TICK = 128, 5, 7
 WARMUP_TICKS, TIMED_TICKS = 2, 30
 TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# the replayed tick against the eager tick (f64 outputs; the same kernels in
+# the same order, so bitwise is expected: the bound leaves room for a library
+# that picks another algorithm on the capture stream)
+GRAPH_TOL = 1e-13
 RESID_TOL = {torch.float32: 2e-4, torch.float64: 1e-12}
 # cart-pole (benchmarks/mpc_cartpole.py: N=60, B=1024, 3 Newton steps)
 CP_N, CP_B, CP_WARMUP, CP_TICKS = 60, 1024, 2, 10
@@ -544,74 +563,226 @@ def phase_front_door(ct, get_problem):
         f"iterations, objective {sol.objective:.10g}, p(0) = {Pc[0]}, {secs:.2f} s wall")
 
 
+def tick_run(tick, states, xs, warmup):
+    """xs through `tick` from `states`, each tick timed by CUDA events and on
+    the host clock (the first `warmup` untimed); returns the per-tick u0 and
+    KKT, the final states, the times and the max KKT."""
+    tick_ms, host_ms, u0s, kkts = [], [], [], []
+    for k, x0 in enumerate(xs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        states, u0, kkt, viol = tick(states, x0)
+        end.record()
+        end.synchronize()
+        if k >= warmup:
+            tick_ms.append(start.elapsed_time(end))
+            host_ms.append((time.perf_counter() - h0) * 1e3)
+        u0s.append(u0)
+        kkts.append(kkt)
+    return dict(states=states, u0s=u0s, kkts=kkts, tick_ms=tick_ms, host_ms=host_ms,
+                kkt_max=max(k.max().item() for k in kkts), viol=viol)
+
+
+def eager_and_replayed(name, kernel, ctrl, states0, xs, warmup, batch):
+    """Phase 5's (and 8's) comparison: the eager tick and the replayed CUDA
+    graph from the same warm state over the same x0 sequence, the kernel's
+    counts set to 0 just before each run and read just after; the graph is
+    captured by one call before its counted run. Holds u0, KKT (every tick)
+    and the final states of the replay to the eager tick (<= GRAPH_TOL abs).
+    Returns both runs with their launches."""
+    kernel.reset_counts()
+    eager = tick_run(ctrl.eager, states0, xs, warmup)
+    eager.update(launches=kernel.launches, grid=kernel.grid_launches)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctrl(states0, xs[0])  # the first call of this signature: warm-up, capture, replay
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph = next(iter(ctrl.graphs.values()))
+    kernel.reset_counts()
+    replay = tick_run(ctrl, states0, xs, warmup)
+    replay.update(launches=kernel.launches, grid=kernel.grid_launches)
+    for tag, run in (("eager", eager), ("replayed", replay)):
+        if run["launches"] != len(xs) * ITERS:
+            raise AssertionError(f"{name} {tag} tick: kernel launched {run['launches']} times, want "
+                                 f"{len(xs) * ITERS}")
+    if ctrl.captures != 1 or len(ctrl.graphs) != 1:
+        raise AssertionError(f"{name}: {ctrl.captures} captures, {len(ctrl.graphs)} graphs, want 1")
+    diffs = dict(
+        u0=max((a - b).abs().max().item() for a, b in zip(replay["u0s"], eager["u0s"])),
+        kkt=max((a - b).abs().max().item() for a, b in zip(replay["kkts"], eager["kkts"])),
+        states=max((a - b).abs().max().item() for a, b in zip(replay["states"], eager["states"])))
+    bitwise = all(torch.equal(a, b) for a, b in zip((*replay["u0s"], *replay["kkts"], *replay["states"]),
+                                                      (*eager["u0s"], *eager["kkts"], *eager["states"])))
+    if not max(diffs.values()) <= GRAPH_TOL:
+        raise AssertionError(f"{name}: the replayed tick differs from the eager tick by {diffs} > {GRAPH_TOL:g}")
+    for tag, run in (("eager", eager), ("replayed", replay)):
+        p50, p90 = np.percentile(run["tick_ms"], 50), np.percentile(run["tick_ms"], 90)
+        run.update(p50=p50, p90=p90)
+        log(f"  {name} {tag} tick: {p50:.3f} ms p50 / {p90:.3f} ms p90 (CUDA events, {len(run['tick_ms'])} "
+            f"timed), host {np.percentile(run['host_ms'], 50):.3f} ms p50 -> {batch / (p50 / 1e3):.1f} solves/s; "
+            f"max KKT {run['kkt_max']:.3e}; kernel launches {run['launches']} ({run['grid']} CUDA launches)")
+    log(f"  {name} replayed vs eager: max abs diff u0 {diffs['u0']:.3e}, KKT {diffs['kkt']:.3e}, states "
+        f"{diffs['states']:.3e} ({'bitwise equal' if bitwise else 'not bitwise'}; bound {GRAPH_TOL:g}); "
+        f"speed-up {eager['p50'] / replay['p50']:.2f}x at p50; first call {first_s:.3f} s (warm-up tick + "
+        f"capture {graph.capture_s:.3f} s + replay), graph pool {graph.pool_bytes / 2**20:.1f} MiB")
+    return dict(eager=eager, replay=replay, diffs=diffs, bitwise=bitwise, first_s=first_s,
+                capture_s=graph.capture_s, pool_mib=graph.pool_bytes / 2**20)
+
+
 def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
     from ctdirect_tpu_torch.parallel.mpc import MPCController, broadcast_state
 
     p = get_problem("double_integrator_minenergy")
     docp = ct.transcribe(p.ocp, grid_size=N, scheme="trapeze", device="cuda")
-    ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, kkt_algorithm="cr",
-                         kkt_solve_dtype=solve_dtype, device="cuda")
+
+    def make_ctrl():
+        return MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, kkt_algorithm="cr",
+                             kkt_solve_dtype=solve_dtype, device="cuda")
+
+    ctrl = make_ctrl()
     t0 = time.perf_counter()
     warm = ctrl.cold_start(options=ct.IPMOptions(tol=1e-8, max_iter=60))
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
-    states = broadcast_state(warm, B)
-
-    kernel.reset_counts()
-    tick_ms, host_ms, kkt_max = [], [], 0.0
-    for k, x0 in enumerate(xs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start.record()
-        states, u0, kkt, viol = ctrl(states, x0)
-        end.record()
-        end.synchronize()
-        if k >= WARMUP_TICKS:
-            tick_ms.append(start.elapsed_time(end))
-            host_ms.append((time.perf_counter() - h0) * 1e3)
-        kkt_max = max(kkt_max, kkt.max().item())
-    launches, grid = kernel.launches, kernel.grid_launches
 
     name = "f32" if solve_dtype == torch.float32 else "f64"
-    if launches != len(xs) * ITERS:
-        raise AssertionError(f"{name} tick: kernel launched {launches} times, want {len(xs) * ITERS}")
+    log(f"main path, {name} block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={B} N={N} x {ITERS} "
+        f"Newton steps, eager and replayed")
+    both = eager_and_replayed(f"{name} block solve", kernel, ctrl, broadcast_state(warm, B), xs, WARMUP_TICKS, B)
+    replay = both["replay"]
+    u0 = replay["u0s"][-1]
     if u0.shape != (B, 1) or not torch.isfinite(u0).all():
         raise AssertionError(f"{name} tick: u0 not finite or wrong shape {tuple(u0.shape)}")
-    if not kkt_max < 1e-10:
-        raise AssertionError(f"{name} tick: max KKT {kkt_max:.3e} >= 1e-10")
-    p50, p90 = np.percentile(tick_ms, 50), np.percentile(tick_ms, 90)
-    log(f"main path, {name} block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={B} "
-        f"N={N} x {ITERS} Newton steps; tick {p50:.3f} ms p50 / {p90:.3f} ms p90 (CUDA events), "
-        f"host {np.percentile(host_ms, 50):.3f} ms p50 -> {B / (p50 / 1e3):.1f} solves/s; "
-        f"max KKT {kkt_max:.3e}; kernel launches {launches}")
-    return dict(path=path_record("mpc_tick_double_integrator", solve_dtype, launches, grid,
-                                 launches * grid_per_solve(chain_blocks(N))),
-                u0=u0, ctrl=ctrl, states=states, warm=warm)
+    for tag in ("eager", "replay"):
+        if not both[tag]["kkt_max"] < 1e-10:
+            raise AssertionError(f"{name} {tag} tick: max KKT {both[tag]['kkt_max']:.3e} >= 1e-10")
+    per = grid_per_solve(chain_blocks(N))
+    return dict(paths=[path_record("mpc_tick_double_integrator", solve_dtype, replay["launches"], replay["grid"],
+                                   replay["launches"] * per),
+                       path_record("mpc_tick_double_integrator_eager", solve_dtype, both["eager"]["launches"],
+                                   both["eager"]["grid"], both["eager"]["launches"] * per)],
+                u0=u0, ctrl=ctrl, make_ctrl=make_ctrl, states=replay["states"], warm=warm, both=both)
 
 
-def phase_device_split(name, ctrl, states, xs, ticks=5):
-    """Device busy/idle share of a few ticks and the CR kernel's part of it."""
+def profiled(tick, states, xs, ticks):
+    """torch.profiler over `ticks` ticks; returns (profile, wall ms per tick)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for x0 in xs[:ticks]:
-            states, *_ = ctrl(states, x0)
+            states, *_ = tick(states, x0)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / ticks * 1e3
-    dev = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return prof, wall
+
+
+def device_kernels(prof):
+    """The profile's CUDA kernels (not the device-side spans of profiler
+    ranges, which stage_split opens)."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and not e.key.startswith("stage:")]
+
+
+def stage_split(make_ctrl, states, xs, ticks):
+    """Device ms per tick by stage of the eager tick, for a controller built
+    by make_ctrl() while these are wrapped in profiler ranges (for this run
+    only): `mpc.shift_state` (shift), the resolve's gradients and
+    vector-Jacobian products (derivatives: grad f, J^T lam), and the KKT
+    operator's prepare, _assemble, _block_solve and the rest of its solve.
+    Each kernel goes to the innermost range open on the host when it was
+    launched (on any thread: the gradients' backward launches from the
+    autograd engine's), the CR kernel's to "CR kernel" (from the kernel
+    table: its ctypes launches link to no host op), and a kernel launched
+    outside every range to "update" (x0 rows, barrier terms, residuals, the
+    step to the boundary, the state update, the exit norms). The replay runs
+    the same kernels in the same order."""
+    from torch.profiler import record_function
+
+    from ctdirect_tpu_torch.parallel import mpc
+    from ctdirect_tpu_torch.solver import resolve
+
+    def ranged(name, fn):
+        def wrapped(*args, **kw):
+            with record_function(f"stage:{name}"):
+                return fn(*args, **kw)
+        return wrapped
+
+    grad, vjp, shift = resolve.grad, resolve.vjp, mpc.shift_state
+
+    def vjp_ranged(fn, *primals):
+        out, back = ranged("derivatives", vjp)(fn, *primals)
+        return out, ranged("derivatives", back)
+
+    resolve.grad, resolve.vjp = (lambda fn: ranged("derivatives", grad(fn))), vjp_ranged
+    mpc.shift_state = ranged("shift", shift)
+    try:
+        ctrl = make_ctrl()
+        for name in ("prepare", "solve", "_assemble", "_block_solve"):
+            setattr(ctrl.kkt, name, ranged(name.lstrip("_"), getattr(ctrl.kkt, name)))
+        prof, _ = profiled(ctrl.eager, states, xs, ticks)
+    finally:
+        resolve.grad, resolve.vjp, mpc.shift_state = grad, vjp, shift
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len("stage:"):]) for e in events
+                    if e.name.startswith("stage:") and e.device_type.name == "CPU")
+    names = {"solve": "solve (other)", "block_solve": "block solve (casts, pad)"}
+    split = {}
+    for e in events:
+        t = e.time_range.start
+        for k in e.kernels:
+            if CR_KERNELS.search(k.name) or k.name.startswith("stage:"):
+                continue
+            inside = [r for r in ranges if r[0] <= t <= r[1]]
+            stage = names.get(max(inside)[2], max(inside)[2]) if inside else "update"
+            split[stage] = split.get(stage, 0.0) + k.duration / ticks / 1e3
+    dev = device_kernels(prof)
+    cr = sum(e.self_device_time_total for e in dev if CR_KERNELS.search(e.key)) / ticks / 1e3
     busy = sum(e.self_device_time_total for e in dev) / ticks / 1e3
-    is_cr = CR_KERNELS.search
-    cr = sum(e.self_device_time_total for e in dev if is_cr(e.key)) / ticks / 1e3
-    cr_launches = sum(e.count for e in dev if is_cr(e.key)) / ticks
-    launches = sum(e.count for e in dev) / ticks
-    if not busy > 0:
-        raise AssertionError("profiler saw no device time")
-    log(f"device split, {name} block solve ({ticks} ticks under torch.profiler): wall {wall:.3f} ms/tick, "
-        f"device busy {busy:.3f} ms/tick ({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
-        f"CR kernel {cr:.3f} ms/tick ({100 * cr / busy:.1f}% of busy, {cr_launches:.0f} CUDA launches), other "
-        f"kernels {busy - cr:.3f} ms/tick, {launches:.0f} kernel launches/tick")
+    split["CR kernel"] = cr
+    split["not linked to a host event"] = busy - sum(split.values())
+    return split
+
+
+def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
+    """Device busy/idle share of a few eager and replayed ticks, the CR
+    kernel's part, and its CUDA launches per replayed tick seen by the
+    profiler (the witness that the graph runs the kernel, apart from the
+    wrapper's counts): ITERS x the plan's launches of one solve. Then the
+    stage split of the eager tick (stage_split)."""
+    P = P or chain_blocks(N)
+    want = ITERS * grid_per_solve(P)
+    out = {}
+    for tag, tick in (("eager", ctrl.eager), ("replayed", ctrl)):
+        prof, wall = profiled(tick, states, xs, ticks)
+        dev = device_kernels(prof)
+        busy = sum(e.self_device_time_total for e in dev) / ticks / 1e3
+        is_cr = CR_KERNELS.search
+        cr = sum(e.self_device_time_total for e in dev if is_cr(e.key)) / ticks / 1e3
+        cr_launches = sum(e.count for e in dev if is_cr(e.key)) / ticks
+        launches = sum(e.count for e in dev) / ticks
+        if not busy > 0:
+            seen = sorted({e.key for e in prof.key_averages()})[:40]
+            raise AssertionError(f"{name} {tag}: the profiler saw no device time; it saw {seen}")
+        if cr_launches != want:
+            raise AssertionError(f"{name} {tag}: {cr_launches} CR kernel events per tick in the profile, "
+                                 f"planned {want}")
+        out[tag] = dict(wall=wall, busy=busy, cr=cr, cr_launches=cr_launches, launches=launches)
+        log(f"device split, {name} {tag} ({ticks} ticks under torch.profiler): wall {wall:.3f} ms/tick, "
+            f"device busy {busy:.3f} ms/tick ({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
+            f"CR kernel {cr:.3f} ms/tick ({100 * cr / busy:.1f}% of busy, {cr_launches:.0f} CUDA launches of it "
+            f"seen per tick, planned {want}), other kernels {busy - cr:.3f} ms/tick, {launches:.0f} kernel "
+            f"launches/tick")
+    split = stage_split(make_ctrl, states, xs, ticks)
+    total = sum(split.values())
+    log(f"  stage split, {name} (eager tick, device ms per tick, {ticks} ticks): "
+        + ", ".join(f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f"; sum {total:.3f}")
+    out["stages"] = split
+    return out
 
 
 def path_record(path, dtype, launches, grid, want_grid):
@@ -654,44 +825,40 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
 
     prob = get_problem("cartpole")
     docp = ct.transcribe(prob.ocp, grid_size=CP_N, scheme="trapeze", device=device)
-    ctrl = MPCController(docp, x0_boundary_rows=[0, 1, 2, 3], resolve_iters=ITERS, kkt_algorithm="cr",
-                         device=device)
+
+    def make_ctrl():
+        return MPCController(docp, x0_boundary_rows=[0, 1, 2, 3], resolve_iters=ITERS, kkt_algorithm="cr",
+                             device=device)
+
+    ctrl = make_ctrl()
     t0 = time.perf_counter()
     warm = ctrl.cold_start(options=ct.IPMOptions(tol=1e-8, max_iter=200), init=prob.init)
     cold_s = time.perf_counter() - t0
-    states = broadcast_state(warm, CP_B)
+    states0 = broadcast_state(warm, CP_B)
     rng = np.random.default_rng(0)
     xs = [torch.tensor(cartpole_x0(rng, CP_B), dtype=torch.float64, device=device)
           for _ in range(CP_WARMUP + CP_TICKS)]
 
-    kernel.reset_counts()
-    tick_ms, kkt_max, viol_max = [], 0.0, 0.0
-    for k, x0 in enumerate(xs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        states, u0, kkt, viol = ctrl(states, x0)
-        end.record()
-        end.synchronize()
-        if k >= CP_WARMUP:
-            tick_ms.append(start.elapsed_time(end))
-        kkt_max, viol_max = max(kkt_max, kkt.max().item()), max(viol_max, viol.max().item())
-    launches, grid = kernel.launches, kernel.grid_launches
-
-    if launches != len(xs) * ITERS:
-        raise AssertionError(f"cart-pole tick: kernel launched {launches} times, want {len(xs) * ITERS}")
+    log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={CP_B} N={CP_N} "
+        f"x {ITERS} Newton steps, eager and replayed")
+    both = eager_and_replayed("cart-pole", kernel, ctrl, states0, xs, CP_WARMUP, CP_B)
+    replay = both["replay"]
+    u0, states = replay["u0s"][-1], replay["states"]
     if u0.shape != (CP_B, 1) or not torch.isfinite(u0).all():
         raise AssertionError(f"cart-pole tick: u0 not finite or wrong shape {tuple(u0.shape)}")
     if not u0.abs().max().item() <= CP_UMAX * (1 + 1e-6):
         raise AssertionError(f"cart-pole tick: |u0| {u0.abs().max().item():.6g} beyond the force box")
     u_all = states.z[:, docp.control_col_indices()]
     sat = (torch.abs(u_all.abs() - CP_UMAX) < 1e-6).double().mean().item()
-    p50, p90 = np.percentile(tick_ms, 50), np.percentile(tick_ms, 90)
-    log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={CP_B} N={CP_N} "
-        f"x {ITERS} Newton steps; tick {p50:.3f} ms p50 / {p90:.3f} ms p90 (CUDA events, {CP_TICKS} timed) "
-        f"-> {CP_B / (p50 / 1e3):.1f} solves/s; max KKT {kkt_max:.3e}, max violation {viol_max:.3e}, "
-        f"saturated force nodes {100 * sat:.2f}%; kernel launches {launches} ({grid} CUDA launches)")
-    return dict(path=path_record("mpc_tick_cartpole", torch.float64, launches, grid,
-                                 launches * grid_per_solve(chain_blocks(CP_N))), docp=docp, warm=warm)
+    log(f"cart-pole tick: max KKT {replay['kkt_max']:.3e}, max violation {replay['viol'].max().item():.3e} "
+        f"(last tick), saturated force nodes {100 * sat:.2f}%")
+    split = phase_device_split("cart-pole", ctrl, make_ctrl, states0, xs, ticks=3, P=chain_blocks(CP_N))
+    per = grid_per_solve(chain_blocks(CP_N))
+    return dict(paths=[path_record("mpc_tick_cartpole", torch.float64, replay["launches"], replay["grid"],
+                                   replay["launches"] * per),
+                       path_record("mpc_tick_cartpole_eager", torch.float64, both["eager"]["launches"],
+                                   both["eager"]["grid"], both["eager"]["launches"] * per)],
+                docp=docp, warm=warm, both=both, split=split)
 
 
 def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
@@ -1091,6 +1258,9 @@ def shard_rank(world, payload):
         rows = B // ctrl.axis.size
         mine = slice(ctrl.axis.rank * rows, (ctrl.axis.rank + 1) * rows)
         states = broadcast_state(warm_state_from_numpy(warm, dev), rows)
+        first_s = None
+        if ctrl.graphed:  # the signature's first call captures this rank's graph (not counted)
+            first_s = _host_ms(lambda: ctrl(states, xs[0][mine]))[1] / 1e3
         tick_ms, kkt_max = [], 0.0
         kernel.reset_counts()
         for k, x0 in enumerate(xs):
@@ -1100,7 +1270,8 @@ def shard_rank(world, payload):
             kkt_max = max(kkt_max, kkt.max().item())
         return dict(rows=(mine.start, mine.stop), u0=u0.cpu().numpy(), kkt_max=kkt_max,
                     finite=bool(torch.isfinite(u0).all()), tick_ms_p50=float(np.median(tick_ms)),
-                    launches=kernel.launches, grid_launches=kernel.grid_launches)
+                    launches=kernel.launches, grid_launches=kernel.grid_launches, graphed=ctrl.graphed,
+                    captures=ctrl.captures, first_s=first_s)
 
     # 14b: the batch-sharded RTI tick, f32 block solve through the kernel
     ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, kkt_algorithm="cr",
@@ -1184,8 +1355,11 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
                                  f"want {n_ticks * ITERS}")
         if not (t["finite"] and t["kkt_max"] < 1e-10 and du <= 1e-12):
             raise AssertionError(f"sharded tick rank {r['rank']}: max KKT {t['kkt_max']:.3e}, u0 diff {du:.3e}")
+        if not (t["graphed"] and t["captures"] == 1):
+            raise AssertionError(f"sharded tick rank {r['rank']}: graphed {t['graphed']}, {t['captures']} captures")
         launches, grid = launches + t["launches"], grid + t["grid_launches"]
-        log(f"batch-sharded tick rank {r['rank']} (rows {lo}-{hi}, f32 block solve): {n_ticks} ticks, tick "
+        log(f"batch-sharded tick rank {r['rank']} (rows {lo}-{hi}, f32 block solve), the rank's own CUDA graph "
+            f"replayed (captured once, first call {t['first_s']:.3f} s): {n_ticks} ticks, tick "
             f"{t['tick_ms_p50']:.3f} ms p50 (host clock, {SHARD_TICKS} timed, 4 ranks sharing the card); max KKT "
             f"{t['kkt_max']:.3e}; u0 vs the unsharded tick {du:.3e}; kernel launches {t['launches']}")
     path = path_record("mpc_tick_batch_sharded", torch.float32, launches, grid,
@@ -1202,7 +1376,10 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
         if not (len(mates) == 2 and t["finite"] and t["kkt_max"] < 1e-10 and du <= 1e-10 and dmate <= 1e-13):
             raise AssertionError(f"2-D tick rank {r['rank']}: max KKT {t['kkt_max']:.3e}, u0 diff {du:.3e}, "
                                  f"time group diff {dmate:.3e}, {len(mates)} ranks on rows {lo}-{hi}")
-        log(f"2-D tick rank {r['rank']} (batch shard rows {lo}-{hi}, time=2, f64 distributed CR): tick "
+        if t["graphed"] or t["captures"]:
+            raise AssertionError(f"2-D tick rank {r['rank']}: graphed {t['graphed']}, {t['captures']} captures")
+        log(f"2-D tick rank {r['rank']} (batch shard rows {lo}-{hi}, time=2, f64 distributed CR), eager (its "
+            f"halos are staged through the host, which a CUDA graph cannot capture): tick "
             f"{t['tick_ms_p50']:.3f} ms p50; max KKT {t['kkt_max']:.3e}; u0 vs the unsharded f64 tick {du:.3e}, "
             f"vs its time-group mate {dmate:.3e}; {t['block_solves']} distributed solves, {t['messages']} "
             f"messages ({t['staged']} staged)")
@@ -1336,7 +1513,7 @@ def main():
         raise AssertionError(f"f32 vs f64 block solve: final u0 differ by {du:.3e}")
     log(f"f32 vs f64 block solve: final u0 agree to {du:.3e}")
     for dt, m in main.items():
-        phase_device_split("f32" if dt == torch.float32 else "f64", m["ctrl"], m["states"], xs)
+        phase_device_split("f32" if dt == torch.float32 else "f64", m["ctrl"], m["make_ctrl"], m["states"], xs)
     phase_done("phases 4-6")
 
     phase_front_door_default(ct, get_problem)
@@ -1352,7 +1529,7 @@ def main():
     sharded = phase_sharded(kernel, kres, main, goddard["sols"]["f64"].objective, xs)
     phase_done("phase 14")
 
-    paths = [main[torch.float32]["path"], main[torch.float64]["path"], tick["path"], batch["path"],
+    paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], batch["path"],
              *goddard["paths"], suite, grid, fixture_ci, sharded]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)

@@ -33,7 +33,7 @@ from torch.func import vmap
 from ctdirect_tpu_torch.model.init import InitialGuess
 from ctdirect_tpu_torch.model.ocp import OCP
 from ctdirect_tpu_torch.model.solution import Solution
-from ctdirect_tpu_torch.transcription.schemes import OCPFns, Scheme, get_scheme
+from ctdirect_tpu_torch.transcription.schemes import GenericIRK, OCPFns, Scheme, get_scheme, host_constant
 
 
 class Variables(NamedTuple):
@@ -52,11 +52,19 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def _shaped(val, shape, like: torch.Tensor) -> torch.Tensor:
-    """A user callable's output as a tensor of `shape` (constants promoted to
-    `like`'s dtype and device)."""
+def _shaped(val, shape, like: torch.Tensor, consts: dict) -> torch.Tensor:
+    """A user callable's output as a tensor of `shape`. A constant (a number
+    or an array of numbers) becomes a tensor in `like`'s dtype and on its
+    device once, at its first use, and is kept in `consts` by value, dtype and
+    device: a host-to-device copy on every call would be a hidden sync in an
+    eager tick and cannot be captured in a CUDA graph (the graphed tick's
+    warm-up makes it before the capture)."""
     if not isinstance(val, torch.Tensor):
-        val = torch.as_tensor(val, dtype=like.dtype, device=like.device)
+        arr = np.asarray(val, dtype=np.float64)
+        key = (arr.shape, arr.tobytes(), like.dtype, like.device)
+        if key not in consts:
+            consts[key] = host_constant(arr, like)
+        val = consts[key]
     return val.reshape(shape)
 
 
@@ -113,6 +121,8 @@ class DOCP:
         # device copies, made once (the callbacks run inside batched ticks)
         self._snorm_t = self.tensor(self._snorm)
         self._fixed_grid_t = None if self._fixed_grid is None else self.tensor(self._fixed_grid)
+        if isinstance(self.scheme, GenericIRK):
+            self.scheme._tableau(self._snorm_t)  # the Butcher tableau on this device, in this dtype
 
         self.N = N
         self.n, self.m, self.q = n, m, q
@@ -130,14 +140,16 @@ class DOCP:
         self.nc = N * self.cw + npath + nbound
 
         # ---- wrapped callables (shape-normalized) ----
+        consts = self._consts = {}
+
         def dyn(t, x, u, v):
-            return _shaped(ocp.dynamics(t, x, u, v), (n,), x)
+            return _shaped(ocp.dynamics(t, x, u, v), (n,), x, consts)
 
         lag = None
         if ocp.has_lagrange:
 
             def lag(t, x, u, v):
-                return _shaped(ocp.lagrange(t, x, u, v), (), x)
+                return _shaped(ocp.lagrange(t, x, u, v), (), x, consts)
 
         self.fns = OCPFns(dynamics=dyn, lagrange=lag)
 
@@ -145,7 +157,7 @@ class DOCP:
         if ocp.path is not None:
 
             def path(t, x, u, v):
-                return _shaped(ocp.path(t, x, u, v), (npath,), x)
+                return _shaped(ocp.path(t, x, u, v), (npath,), x, consts)
 
             self._path = path
 
@@ -153,7 +165,7 @@ class DOCP:
         if ocp.boundary is not None:
 
             def boundary(x0, xf, v):
-                return _shaped(ocp.boundary(x0, xf, v), (nbound,), x0)
+                return _shaped(ocp.boundary(x0, xf, v), (nbound,), x0, consts)
 
             self._boundary = boundary
 
@@ -161,7 +173,7 @@ class DOCP:
         if ocp.has_mayer:
 
             def mayer(x0, xf, v):
-                return _shaped(ocp.mayer(x0, xf, v), (), x0)
+                return _shaped(ocp.mayer(x0, xf, v), (), x0, consts)
 
             self._mayer = mayer
 

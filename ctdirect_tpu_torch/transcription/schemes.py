@@ -260,6 +260,16 @@ class Euler(Scheme):
         return h * fns.lagrange(tip1, xn, U[0], v)
 
 
+def host_constant(value, like: torch.Tensor) -> torch.Tensor:
+    """`value` (a number or an array of them) as a plain tensor in `like`'s
+    dtype and on its device, made outside any `torch.func` transform: a
+    tensor made inside one belongs to that transform's level, and a kept copy
+    would outlive it. For constants made once and kept (the callbacks make
+    no tensor from host data per call, so a tick can be a CUDA graph)."""
+    with torch._C._DisableFuncTorch():
+        return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
 class GenericIRK(Scheme):
     """Implicit Runge-Kutta collocation with stage variables K.
 
@@ -267,7 +277,9 @@ class GenericIRK(Scheme):
     and defect       x_{i+1} = x_i + h * sum_j b_j K_i^j.
     `stagewise=True` gives a distinct control per stage U_i^j; otherwise the
     step control U_i is shared by all stages. The Butcher arrays are kept in
-    numpy and become tensors on the input's device and dtype at every call.
+    numpy and become tensors once per device and dtype (the DOCP makes its
+    own at construction): the callbacks make no tensor from host data, so a
+    tick that runs them can be captured in a CUDA graph.
     """
 
     def __init__(self, name, info, order, A, b, c, stagewise: bool):
@@ -280,11 +292,14 @@ class GenericIRK(Scheme):
         self.name = name
         self.info = info
         self.order = order
+        self._tables = {}
 
     def _tableau(self, like):
-        """(A, b, c) as tensors on `like`'s device, in its dtype."""
-        return tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
-                     for a in (self.A, self.b, self.c))
+        """(A, b, c) as tensors on `like`'s device, in its dtype (made once)."""
+        key = (like.dtype, like.device)
+        if key not in self._tables:
+            self._tables[key] = tuple(host_constant(a, like) for a in (self.A, self.b, self.c))
+        return self._tables[key]
 
     def _stage_controls(self, U):
         """(N, s, m) control used at each stage."""
