@@ -36,8 +36,19 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      ticks (63 CR launches per tick);
   9. batched cart-pole scenario solves: BatchSolver (kkt_mode="cr", tol 1e-6,
      30 iterations at most) over 1024 instances with per-instance x0, from the
-     cold-start solution; launches = the batched KKT solves, three instances
-     re-solved unbatched must match, converged share >= CP_MIN_CONVERGED.
+     cold-start solution, three times: the eager solve (`BatchSolver.eager`),
+     the first call as the solver runs it on the card (its ten segments
+     captured as CUDA graphs at their first use, after a warm-up run of
+     each) and a second call (replay only). Each prints its wall, solves/s,
+     host syncs per iteration and kernel launches, which must be the batched
+     KKT solves (plus, in the first call, those of the segment warm-ups); the
+     graphed calls also their capture s, segment graphs and pool MiB, and
+     must equal the eager solve within GRAPH_TOL over every field and
+     instance (bitwise expected) with the same solves, syncs and segment
+     runs. Then one more graphed solve under torch.profiler: device busy and
+     idle share, the CR kernel's share, and its CUDA launches, which must be
+     the solve's KKT solves x (3 + 3 log2 64) = 21. Three instances re-solved
+     unbatched must match, converged share >= CP_MIN_CONVERGED.
  10. BASELINE config 2: ct.solve(goddard, Gauss-Legendre 2-stage constant
      control, N=200, tol 1e-8, adaptive mu, kkt_mode="cr") with the f64 block
      solve and with the f32 block solve + 2 refinement sweeps + Ruiz: both
@@ -86,7 +97,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         through ipm_solve(kkt=TimeShardedKKT) over time=2: status 0 and the
         objective within 1e-8 of phase 10's f64 objective;
      e. ctdirect_tpu_torch.entry.dryrun_multichip(4, cuda, gloo): all five
-        legs.
+        legs; on every rank the batch-sharded solves of legs 1 and 4 run as
+        the rank's own segment graphs (the all_gather outside them).
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
 (P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
@@ -861,10 +873,29 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
                 docp=docp, warm=warm, both=both, split=split)
 
 
+def result_diff(a, b):
+    """Max abs difference of two solves' results over every field and
+    instance (inf where their NaNs or integer fields differ)."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if not x.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(x, y) else float("inf"))
+            continue
+        if not torch.equal(torch.isnan(x), torch.isnan(y)):
+            return float("inf")
+        ok = ~torch.isnan(x)
+        worst = max(worst, (x[ok] - y[ok]).abs().max().item() if ok.any() else 0.0)
+    return worst
+
+
 def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
-    """BatchSolver over per-instance x0 scenarios from the cold-start solution."""
+    """BatchSolver over per-instance x0 scenarios from the cold-start
+    solution, three times: eager, the first graphed call (captures) and a
+    second one (replay only); the graphed results held to the eager ones,
+    then one more graphed call under torch.profiler."""
     from ctdirect_tpu_torch.parallel import BatchSolver
     from ctdirect_tpu_torch.solver.interface import _get_solver
+    from ctdirect_tpu_torch.solver.ipm import BatchStats
 
     opts = ct.IPMOptions(tol=1e-6, max_iter=30, lsq_lambda_init=False, kkt_mode="cr")
     solver = BatchSolver(docp, opts, device=device)
@@ -874,29 +905,80 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
     cl[:, rows] += x0
     cu[:, rows] += x0
     z0 = warm.z.expand(CP_BATCH, -1)
+    per = grid_per_solve(chain_blocks(CP_N))
+    log(f"cart-pole batch solve, f64 cr: B={CP_BATCH} N={CP_N} tol {opts.tol:g}, <= {opts.max_iter} iterations; "
+        f"eager, first graphed call, graphed replay")
 
-    kernel.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = solver(z0, cl, cu)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches, grid = kernel.launches, kernel.grid_launches
-    st = solver.stats
+    runs = {}
+    for tag, fn in (("eager", solver.eager), ("first graphed call", solver), ("graphed replay", solver)):
+        solver.stats = BatchStats()
+        graph = solver.graphs.get(CP_BATCH)
+        capture_s0 = graph.capture_s if graph else 0.0
+        warm0 = graph.warmup_added[kernel, "launches"] if graph else 0
+        kernel.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(z0, cl, cu)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, grid = kernel.launches, kernel.grid_launches
+        st, graph = solver.stats, solver.graphs.get(CP_BATCH)
+        warmups = graph.warmup_added[kernel, "launches"] - warm0 if fn is solver else 0
+        if launches != st.kkt_solves + warmups:
+            raise AssertionError(f"batch solve, {tag}: kernel launched {launches} times, {st.kkt_solves} batched KKT "
+                                 f"solves + {warmups} in segment warm-ups")
+        if res.z.shape != (CP_BATCH, docp.nz) or not torch.isfinite(res.z).all():
+            raise AssertionError(f"batch solve, {tag}: z not finite or wrong shape")
+        runs[tag] = dict(res=res, stats=st, wall=wall, launches=launches, grid=grid)
+        line = (f"  {tag}: {wall:.3f} s wall -> {CP_BATCH / wall:.1f} solves/s; {st.iterations} batch iterations, "
+                f"{st.kkt_solves} batched KKT solves, {st.host_syncs} host syncs "
+                f"({st.host_syncs / max(st.iterations, 1):.2f} per iteration); kernel launches {launches} "
+                f"({grid} CUDA launches)")
+        if fn is solver:
+            diff = result_diff(res, runs["eager"]["res"])
+            bitwise = all(torch.equal(a, b) for a, b in zip(res, runs["eager"]["res"]))
+            if not (diff <= GRAPH_TOL and st == runs["eager"]["stats"]):
+                raise AssertionError(f"batch solve, {tag}: differs from the eager solve by {diff:.3e} "
+                                     f"(bound {GRAPH_TOL:g}), stats {st} vs {runs['eager']['stats']}")
+            line += (f"; {warmups} warm-up launches; capture {graph.capture_s - capture_s0:.3f} s, "
+                     f"{solver.captures} segment graphs, pool {graph.pool_bytes / 2**20:.1f} MiB; vs eager: max abs "
+                     f"diff {diff:.3e} over every field and instance ({'bitwise equal' if bitwise else 'not bitwise'}; "
+                     f"bound {GRAPH_TOL:g}), same solves, syncs and segment runs")
+        log(line)
+    log(f"  segment runs per solve: {runs['eager']['stats'].segments}; speed-up of the replay over the eager solve "
+        f"{runs['eager']['wall'] / runs['graphed replay']['wall']:.2f}x")
 
-    if launches != st.kkt_solves:
-        raise AssertionError(f"batch solve: kernel launched {launches} times, {st.kkt_solves} batched KKT solves")
-    if res.z.shape != (CP_BATCH, docp.nz) or not torch.isfinite(res.z).all():
-        raise AssertionError("batch solve: z not finite or wrong shape")
+    res = runs["graphed replay"]["res"]
     ok = res.successful.double().mean().item()
     its = res.iterations.cpu().numpy()
     if not ok >= CP_MIN_CONVERGED:
         raise AssertionError(f"batch solve: converged share {ok:.4f} < {CP_MIN_CONVERGED}")
-    log(f"cart-pole batch solve, f64 cr: B={CP_BATCH} N={CP_N} tol {opts.tol:g}, <= {opts.max_iter} iterations: "
-        f"{wall:.3f} s wall -> {CP_BATCH / wall:.1f} solves/s; converged {100 * ok:.2f}%, median iterations "
-        f"{np.median(its):.0f} (max {its.max()}); {st.iterations} batch iterations, {st.kkt_solves} batched KKT "
-        f"solves, {st.host_syncs} host syncs ({st.host_syncs / max(st.iterations, 1):.2f} per iteration); "
-        f"kernel launches {launches} ({grid} CUDA launches)")
+    log(f"  converged {100 * ok:.2f}%, median iterations {np.median(its):.0f} (max {its.max()})")
+
+    # the device split of one more graphed solve
+    from torch.profiler import ProfilerActivity, profile
+
+    solver.stats = BatchStats()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solver(z0, cl, cu)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = device_kernels(prof)
+    busy = sum(e.self_device_time_total for e in dev) / 1e6
+    cr = sum(e.self_device_time_total for e in dev if CR_KERNELS.search(e.key)) / 1e6
+    cr_launches = sum(e.count for e in dev if CR_KERNELS.search(e.key))
+    want = solver.stats.kkt_solves * per
+    if cr_launches != want:
+        raise AssertionError(f"batch solve: {cr_launches} CR kernel events in the profile, planned {want}")
+    split = dict(wall=wall, busy=busy, cr=cr, cr_launches=cr_launches, launches=sum(e.count for e in dev))
+    replay = runs["graphed replay"]["wall"]
+    log(f"  device split, graphed solve under torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%; idle {100 * (1 - busy / replay):.1f}% of "
+        f"the unprofiled replay's {replay:.3f} s), CR kernel {cr:.3f} s ({100 * cr / busy:.1f}% of busy, "
+        f"{cr_launches} CUDA launches of it seen = {solver.stats.kkt_solves} solves x {per}), {split['launches']} "
+        f"kernel launches")
 
     run = _get_solver(docp, opts)
     for b in CP_CHECK:
@@ -910,8 +992,10 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
                 f"{int(r.iterations)} it, objective {float(r.objective)!r})")
         log(f"  instance {b}: status {int(r.status)}, {int(r.iterations)} iterations, objective "
             f"{float(r.objective):.12g} batched and unbatched (rel diff {rel:.1e})")
-    return dict(path=path_record("batch_solve_cartpole", torch.float64, launches, grid,
-                                 launches * grid_per_solve(chain_blocks(CP_N))))
+    names = {"graphed replay": "batch_solve_cartpole", "first graphed call": "batch_solve_cartpole_first_call",
+             "eager": "batch_solve_cartpole_eager"}
+    return dict(paths=[path_record(names[tag], torch.float64, r["launches"], r["grid"], r["launches"] * per)
+                       for tag, r in runs.items()], split=split)
 
 
 def timed_solve(kernel, fn):
@@ -1404,7 +1488,11 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
     legs = dryrun_multichip(SHARD_WORLD, device="cuda", backend="gloo", timeout=SHARD_TIMEOUT)
     if len(legs) != SHARD_WORLD or any(set(r) != {"batch", "time", "tick", "boxes", "tick_2d"} for r in legs):
         raise AssertionError("dryrun_multichip: a leg is missing")
-    log(f"dryrun_multichip({SHARD_WORLD}, cuda, gloo): all five legs, {time.perf_counter() - t0:.1f} s")
+    captures = [(r["batch"]["captures"], r["boxes"]["captures"]) for r in legs]
+    if not all(r["batch"]["graphed"] for r in legs) or min(min(c) for c in captures) < 1:
+        raise AssertionError(f"dryrun_multichip: legs 1 and 4 not graphed on every rank: {captures}")
+    log(f"dryrun_multichip({SHARD_WORLD}, cuda, gloo): all five legs, {time.perf_counter() - t0:.1f} s; segment "
+        f"graphs per rank after legs 1 and 4: {captures}")
     return path
 
 
@@ -1529,7 +1617,7 @@ def main():
     sharded = phase_sharded(kernel, kres, main, goddard["sols"]["f64"].objective, xs)
     phase_done("phase 14")
 
-    paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], batch["path"],
+    paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
              *goddard["paths"], suite, grid, fixture_ci, sharded]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)

@@ -87,7 +87,8 @@ def _dryrun_rank(world):
     z0 = np.tile(docp.initial_guess(None), (B, 1))
     res = solver(z0)
     _check(tuple(res.z.shape) == (B, docp.nz) and bool(torch.isfinite(res.z).all()), "leg 1: z")
-    out["batch"] = dict(status=res.status.cpu().numpy(), z=res.z.cpu().numpy())
+    out["batch"] = dict(status=res.status.cpu().numpy(), z=res.z.cpu().numpy(), graphed=solver.graphed,
+                        captures=solver.captures)
 
     # 2. time-parallel solve: the full IPM with the time-sharded KKT operator
     mesh_t = world.mesh((n,), ("time",))
@@ -122,7 +123,7 @@ def _dryrun_rank(world):
         zl[:, cols] = zl[:, cols] * scale
     res_b = solver(z0, zl_batch=zl, zu_batch=zu)
     _check(tuple(res_b.z.shape) == (B, docp.nz) and bool(torch.isfinite(res_b.z).all()), "leg 4: z")
-    out["boxes"] = dict(status=res_b.status.cpu().numpy(), z=res_b.z.cpu().numpy())
+    out["boxes"] = dict(status=res_b.status.cpu().numpy(), z=res_b.z.cpu().numpy(), captures=solver.captures)
 
     # 5. 2-D batch x time mesh MPC tick: instances over the batch axis, each
     # instance's KKT chain by distributed CR over the time axis
@@ -151,11 +152,13 @@ def dryrun_multichip(n_devices: int, *, device, backend: str, timeout: float = 6
     ranks = launch(_dryrun_rank, n_devices, device=device, backend=backend, timeout=timeout)
     r0 = ranks[0]
     tag = f"dryrun_multichip({n_devices}, {device}, {backend})"
-    print(f"{tag}: batch-sharded solve OK; statuses={r0['batch']['status'][:4]}...")
+    graphs = f"{r0['batch']['captures']} segment graphs on rank 0" if r0["batch"]["graphed"] else "eager"
+    print(f"{tag}: batch-sharded solve OK ({graphs}); statuses={r0['batch']['status'][:4]}...")
     print(f"{tag}: time-sharded distributed-CR solve OK; kkt_error={r0['time']['kkt']:.2e} "
           f"({r0['time']['messages']} messages on rank 0, {r0['time']['staged']} staged through the host)")
     print(f"{tag}: batch-sharded RTI tick OK; max kkt={max(r['tick']['kkt'] for r in ranks):.2e}")
-    print(f"{tag}: batched-zl/zu sharded solve OK; statuses={r0['boxes']['status'][:4]}...")
+    print(f"{tag}: batched-zl/zu sharded solve OK ({r0['boxes']['captures']} segment graphs on rank 0 after "
+          f"it); statuses={r0['boxes']['status'][:4]}...")
     if "tick_2d" in r0:
         print(f"{tag}: 2-D (batch={n_devices // 2}, time=2) mesh MPC tick OK; "
               f"max kkt={max(r['tick_2d']['kkt'] for r in ranks):.2e}")

@@ -25,14 +25,16 @@ here `ipm_solve` is one instance with Python control flow: every branch reads
 its condition back from the device (`.item()`), and the arithmetic follows
 the JAX package step for step so that a solve lands on the same iterates.
 `ipm_solve_batched` is the counterpart of `jax.vmap(ipm_solve)`: B instances
-in one masked loop, each on the iterates `ipm_solve` gives it alone.
+in one masked loop, each on the iterates `ipm_solve` gives it alone. Its
+iteration is ten segments between the host's reads (`batched_ipm`), which
+`parallel/batch.py` replays as CUDA graphs on a card.
 Derivatives come from `torch.func` (grad, vjp, jvp, vmap).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -882,6 +884,7 @@ class BatchStats:
     kkt_solves: int = 0
     host_syncs: int = 0  # device->host reads of a batch-wide loop condition
     iterations: int = 0  # trips of the batch's outer loop
+    segments: dict = field(default_factory=dict)  # runs of each segment (`batched_ipm`)
 
 
 class _Prob(NamedTuple):
@@ -936,40 +939,75 @@ def _sel(mask, new, old):
     return torch.where(mask.reshape(mask.shape + (1,) * (new.ndim - 1)), new, old)
 
 
-def ipm_solve_batched(
+# the segments of one batched IPM iteration, in the order the host loop first
+# runs them (`batched_ipm`)
+SEGMENTS = ("prologue", "reg_trial", "ls_setup", "soc", "bt_trial", "select", "restore", "clamp", "refresh",
+            "close")
+
+
+class BatchedIPM(NamedTuple):
+    """The batched IPM as a host loop over pure segment functions
+    (`batched_ipm` builds it; `ipm_solve_batched` runs it eagerly)."""
+
+    # (z0, zl, zu, cl, cu, stats) -> the state at the first iteration: a dict
+    # of tensors and NamedTuples / dicts of tensors, (B, ...) each
+    setup: Callable
+    # SEGMENTS name -> segment(state) -> the state entries it renews
+    segments: dict
+    # (state, run, stats): the loops of the solve; run(name) brings `state`
+    # up to date with segment `name`, each decision is one read of a flag
+    drive: Callable
+    # state -> IPMResult
+    epilogue: Callable
+
+    def eager(self, z0, zl, zu, cl, cu, stats: BatchStats) -> IPMResult:
+        """The solve with every segment run op by op, on any device."""
+        state = self.setup(z0, zl, zu, cl, cu, stats)
+        self.drive(state, lambda name: state.update(self.segments[name](state)), stats)
+        return self.epilogue(state)
+
+
+def batched_ipm(
     f: Callable,
     c: Callable,
     spec: NLPSpec,
-    z0,
-    zl,
-    zu,
-    cl,
-    cu,
     options: IPMOptions = IPMOptions(),
     kkt=None,
     *,
     device,
     dtype: torch.dtype = torch.float64,
-    stats: Optional[BatchStats] = None,
-) -> IPMResult:
-    """Solve B instances of one NLP structure at once: z0, zl, zu (B, nz) and
-    cl, cu (B, nc), one instance per row. Returns an IPMResult whose every
-    field has a leading batch axis (iterations, status and successful are
-    (B,) tensors).
+) -> BatchedIPM:
+    """The batched IPM (`ipm_solve_batched`) split at its host reads.
 
-    Each instance follows exactly the iterates `ipm_solve` gives it alone:
-    its own scaling, barrier parameter, regularization, filter and counters.
-    A loop runs another trip while ANY instance still needs one; instances
-    that finished, or that are outside a branch, keep their values
-    (`torch.where`), as under `jax.vmap` of the JAX solver. Derivatives and
-    the KKT operator run through `torch.func.vmap` of the per-instance
-    functions, so each KKT solve is ONE batched call (one launch of the CR
-    kernel for the whole batch with a CUDA `StructuredKKT(algorithm="cr")`).
-    `stats` (if given) counts the batched KKT solves, the host reads of loop
-    conditions and the outer iterations."""
+    A solve is `setup`, then `drive`, then `epilogue`. One IPM iteration is
+    ten segments, each a pure function of the solver's state that returns
+    the entries it renews; a segment that ends in a decision returns it as
+    a 0-dim bool flag computed on the device, and the host loop reads that flag
+    back (one host sync, counted in `stats.host_syncs`):
+      prologue   the iteration's per-instance quantities and the ladder's
+                 first values;
+      reg_trial  one trial of the regularization ladder (a KKT solve), flag
+                 `reg_more`, run again while it is set;
+      ls_setup   the line search's set-up and first trial, flag `soc`;
+      soc        the second-order correction (a KKT solve), then flag
+                 `bt_more` (ls_setup's when it does not run);
+      bt_trial   one backtracking trial, flag `bt_more`, run again while set;
+      select     the step's selection, the filter and the advance, flag
+                 `restore`;
+      restore    feasibility restoration (a KKT solve);
+      clamp      the soft-fail count, the dual clamp and flag `refresh`;
+      refresh    the dual refresh (a KKT solve);
+      close      the KKT error, revert, mu, filter reset, status and carry
+                 select, flag `more` (another iteration).
+    The set-up's flag `more` opens the outer loop. The state is all that
+    passes between segments, so the same loop runs them eagerly
+    (`ipm_solve_batched`) or as replayed CUDA graphs whose outputs are
+    copied into persistent tensors (parallel/batch.py::BatchGraph), and
+    both make the same KKT solves and land on the same iterates bit for
+    bit. The segments read no host data and no device value back, so each
+    can be captured. Everything but the batch size B is fixed here."""
     opts = options
     nz, nc = spec.nz, spec.nc
-    stats = BatchStats() if stats is None else stats
 
     def tensor(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
@@ -977,12 +1015,6 @@ def ipm_solve_batched(
     def mask(x):
         return torch.as_tensor(x, dtype=torch.bool, device=device)
 
-    def host(flag) -> bool:
-        stats.host_syncs += 1
-        return bool(flag)
-
-    Z0, ZL, ZU, CL, CU = (tensor(x) for x in (z0, zl, zu, cl, cu))
-    B = Z0.shape[0]
     eq = mask(spec.eq_mask)
     ineq = ~eq
     zlm = mask(spec.zl_mask)
@@ -997,6 +1029,11 @@ def ipm_solve_batched(
     if kkt is None:
         kkt = DenseKKT(f, c, nz, nc)
     kap = opts.kappa_push
+    # constants the segments use, made once here: a tensor made from host
+    # data inside a segment is a copy from the host per call, which a CUDA
+    # graph would refuse or fix at its capture-time value
+    mu_init = tensor(opts.mu_init)
+    gn_delta_w, gn_delta_c = tensor(1e-8), tensor(0.0)
 
     # ---- per-instance functions (each vmapped over the batch below) ----
     def f_s(pb, z):
@@ -1164,7 +1201,7 @@ def ipm_solve_batched(
                 avg, min=1e-300
             )
             sigma_c = 0.1 * torch.clamp(0.05 * (1.0 - xi) / torch.clamp(xi, min=1e-12), max=2.0) ** 3
-            mu = _clip(sigma_c * avg, torch.clamp(1e-2 * mu, min=opts.mu_min), tensor(opts.mu_init))
+            mu = _clip(sigma_c * avg, torch.clamp(1e-2 * mu, min=opts.mu_min), mu_init)
         sigma_z = torch.where(zlm, wL / gL, 0.0) + torch.where(zum, wU / gU, 0.0)
         sigma_s = torch.where(slm, yL / sgL, 0.0) + torch.where(sum_, yU / sgU, 0.0)
         sigma_s = torch.where(ineq, torch.clamp(sigma_s, min=1e-12), 1.0)
@@ -1296,8 +1333,8 @@ def ipm_solve_batched(
             kkt.gauss_newton_data(sp.kdata),
             torch.zeros((nz,), dtype=dtype, device=device),
             torch.ones((nc,), dtype=dtype, device=device),
-            tensor(1e-8),
-            tensor(0.0),
+            gn_delta_w,
+            gn_delta_c,
             torch.zeros((nz,), dtype=dtype, device=device),
             r_r,
         )
@@ -1352,14 +1389,33 @@ def ipm_solve_batched(
     v_clamp, v_refresh, v_kkt_error = vmap(clamp_duals), vmap(refresh), vmap(kkt_error_pair)
     v_fresh_filter = vmap(fresh_filter)
 
-    # ---- one IPM iteration for the whole batch; `active` marks the
-    # instances whose result is kept ----
-    def step(cr: _Carry, active) -> _Carry:
-        sp = v_prologue(PB, cr)
-        mu = sp.mu
-        zeros_b = torch.zeros((B,), dtype=dtype, device=device)
-        false_b = torch.zeros((B,), dtype=torch.bool, device=device)
+    # ---- the solve's set-up: bound relaxation, scaling, initial point,
+    # multiplier init; flag `more` opens the outer loop ----
+    def start(z0, zl, zu, cl, cu, stats: BatchStats) -> dict:
+        # every entry materialised (vmap broadcasts the ones made from
+        # constants, the caller may pass expanded bounds): a copy of the state
+        # into persistent tensors then keeps every layout, and so every result
+        Z0, ZL, ZU, CL, CU = (tensor(x).contiguous() for x in (z0, zl, zu, cl, cu))
+        PB, z_init, s_init, wL0, wU0, yL0, yU0, g_init = v_setup(Z0, ZL, ZU, CL, CU)
+        PB = _Prob(*(x.contiguous() for x in PB))
+        lam_ls = None
+        if opts.lsq_lambda_init and nc > 0:
+            stats.kkt_solves += 1
+            lam_ls = vmap(kkt.lsq_lambda)(z_init, g_init, PB.sf, PB.sc)
+        carry = vmap(init_carry, in_dims=(0, 0, 0, None if lam_ls is None else 0, 0, 0, 0, 0))(
+            PB, z_init, s_init, lam_ls, wL0, wU0, yL0, yU0
+        )
+        carry = _Carry(*(x.contiguous() for x in carry))
+        active = ~carry.done & (carry.it < opts.max_iter)
+        return dict(pb=PB, cr=carry, active=active, more=active.any())
 
+    # ---- the segments of one iteration; `active` marks the instances
+    # whose result is kept ----
+    def seg_prologue(S):
+        cr = S["cr"]
+        sp = v_prologue(S["pb"], cr)
+        B = cr.z.shape[0]
+        false_b = torch.zeros((B,), dtype=torch.bool, device=device)
         # regularization ladder: trial 0 unregularized, then the decayed last
         # value (or delta_w_init on the first-ever correction), escalating by 8
         # (100 on the first-ever correction)
@@ -1369,99 +1425,133 @@ def ipm_solve_batched(
             opts.delta_w_init * sp.h_scale,
             torch.maximum(1e-20 * sp.h_scale, cr.delta_w_last / 3.0),
         )
-        grow = torch.where(never_used, 100.0, 8.0)
-        delta_w, trials = zeros_b, torch.zeros((B,), dtype=torch.long, device=device)
-        dz = torch.zeros((B, nz), dtype=dtype, device=device)
         dlam = torch.zeros((B, nc), dtype=dtype, device=device)
-        ds, solve_ok, run = torch.zeros_like(dlam), false_b, active
-        while True:
-            new_dw = torch.where(trials == 0, 0.0, torch.where(trials == 1, first, delta_w * grow))
-            new_dc = torch.where(
-                trials == 0, opts.delta_c, torch.maximum(sp.delta_c_reg, 1e-8 * new_dw)
-            )
-            stats.kkt_solves += 1
-            dz_t, dlam_t, ds_t, ok_t = v_reg_solve(PB, cr, sp, new_dw, new_dc)
-            dz, dlam, ds = _sel(run, dz_t, dz), _sel(run, dlam_t, dlam), _sel(run, ds_t, ds)
-            solve_ok = torch.where(run, ok_t, solve_ok)
-            delta_w = torch.where(run, new_dw, delta_w)
-            trials = torch.where(run, trials + 1, trials)
-            run = run & ~solve_ok & (trials <= opts.max_reg_trials)
-            if not host(run.any()):
-                break
-        delta_w_last = torch.where(delta_w > 0, delta_w, cr.delta_w_last)
-
-        # filter line search: first trial at alpha_max, SOC on rejection,
-        # then backtracking from alpha_max / 2
-        ls = v_ls_setup(PB, cr, sp, dz, ds)
-        ok_1, ftype_1, th_1 = v_trial(PB, cr, sp, ls, ls.alpha_max, dz, ds)
-        delta_c_used = torch.where(
-            delta_w > 0, torch.maximum(sp.delta_c_reg, 1e-8 * delta_w), opts.delta_c
+        return dict(
+            sp=sp, first=first, grow=torch.where(never_used, 100.0, 8.0),
+            delta_w=torch.zeros((B,), dtype=dtype, device=device),
+            trials=torch.zeros((B,), dtype=torch.long, device=device),
+            dz=torch.zeros((B, nz), dtype=dtype, device=device), dlam=dlam, ds=torch.zeros_like(dlam),
+            solve_ok=false_b, reg_run=S["active"],
         )
+
+    def seg_reg_trial(S):
+        trials, delta_w, run, sp = S["trials"], S["delta_w"], S["reg_run"], S["sp"]
+        new_dw = torch.where(trials == 0, 0.0, torch.where(trials == 1, S["first"], delta_w * S["grow"]))
+        new_dc = torch.where(
+            trials == 0, opts.delta_c, torch.maximum(sp.delta_c_reg, 1e-8 * new_dw)
+        )
+        dz_t, dlam_t, ds_t, ok_t = v_reg_solve(S["pb"], S["cr"], sp, new_dw, new_dc)
+        solve_ok = torch.where(run, ok_t, S["solve_ok"])
+        trials = torch.where(run, trials + 1, trials)
+        more = run & ~solve_ok & (trials <= opts.max_reg_trials)
+        return dict(
+            dz=_sel(run, dz_t, S["dz"]), dlam=_sel(run, dlam_t, S["dlam"]), ds=_sel(run, ds_t, S["ds"]),
+            solve_ok=solve_ok, delta_w=torch.where(run, new_dw, delta_w), trials=trials, reg_run=more,
+            reg_more=more.any(),
+        )
+
+    def backtracking(S, ok_1, soc_valid):
+        """The backtracking loop's entry state and its first flag."""
+        ok_bt = ok_1 | soc_valid
+        run = S["active"] & ~ok_bt & (opts.max_ls > 0)
+        return dict(ok_bt=ok_bt, bt_run=run, bt_more=run.any())
+
+    # filter line search: first trial at alpha_max, SOC on rejection, then
+    # backtracking from alpha_max / 2
+    def seg_ls_setup(S):
+        pb, cr, sp, dz, ds, delta_w = S["pb"], S["cr"], S["sp"], S["dz"], S["ds"], S["delta_w"]
+        ls = v_ls_setup(pb, cr, sp, dz, ds)
+        ok_1, ftype_1, th_1 = v_trial(pb, cr, sp, ls, ls.alpha_max, dz, ds)
         soc_wanted = ~ok_1 & (th_1 >= ls.theta0)
-        dz_c, dlam_c, ds_c = torch.zeros_like(dz), torch.zeros_like(dlam), torch.zeros_like(ds)
-        a_soc, soc_valid, ftype_soc = zeros_b, false_b, false_b
-        if host((active & soc_wanted).any()):
-            stats.kkt_solves += 1
-            dz_c, dlam_c, ds_c, a_soc, valid, ftype_soc = v_soc(
-                PB, cr, sp, ls, dz, ds, delta_w, delta_c_used
-            )
-            soc_valid = soc_wanted & valid
+        zeros_b, false_b = torch.zeros_like(delta_w), torch.zeros_like(ok_1)
+        return dict(
+            delta_w_last=torch.where(delta_w > 0, delta_w, cr.delta_w_last), ls=ls, ok_1=ok_1,
+            ftype_1=ftype_1, soc_wanted=soc_wanted,
+            delta_c_used=torch.where(
+                delta_w > 0, torch.maximum(sp.delta_c_reg, 1e-8 * delta_w), opts.delta_c
+            ),
+            dz_c=torch.zeros_like(dz), dlam_c=torch.zeros_like(S["dlam"]), ds_c=torch.zeros_like(ds),
+            a_soc=zeros_b, soc_valid=false_b, ftype_soc=false_b,
+            alpha_bt=ls.alpha_max * 0.5, ls_it=torch.zeros_like(S["trials"]), ftype_bt=false_b,
+            soc=(S["active"] & soc_wanted).any(), **backtracking(S, ok_1, false_b),
+        )
 
-        alpha_bt = ls.alpha_max * 0.5
-        ls_it = torch.zeros((B,), dtype=torch.long, device=device)
-        ok_bt, ftype_bt = ok_1 | soc_valid, false_b
-        run = active & ~ok_bt & (opts.max_ls > 0)
-        while host(run.any()):
-            ok_t, ftype_t, _ = v_trial(PB, cr, sp, ls, alpha_bt, dz, ds)
-            alpha_bt = torch.where(run & ~ok_t, alpha_bt * 0.5, alpha_bt)
-            ok_bt = torch.where(run, ok_t, ok_bt)
-            ftype_bt = torch.where(run, ftype_t, ftype_bt)
-            ls_it = torch.where(run, ls_it + 1, ls_it)
-            run = run & ~ok_bt & (ls_it < opts.max_ls)
+    def seg_soc(S):
+        dz_c, dlam_c, ds_c, a_soc, valid, ftype_soc = v_soc(
+            S["pb"], S["cr"], S["sp"], S["ls"], S["dz"], S["ds"], S["delta_w"], S["delta_c_used"]
+        )
+        soc_valid = S["soc_wanted"] & valid
+        return dict(dz_c=dz_c, dlam_c=dlam_c, ds_c=ds_c, a_soc=a_soc, soc_valid=soc_valid, ftype_soc=ftype_soc,
+                    **backtracking(S, S["ok_1"], soc_valid))
 
+    def seg_bt_trial(S):
+        run, alpha_bt, ls_it = S["bt_run"], S["alpha_bt"], S["ls_it"]
+        ok_t, ftype_t, _ = v_trial(S["pb"], S["cr"], S["sp"], S["ls"], alpha_bt, S["dz"], S["ds"])
+        ok_bt = torch.where(run, ok_t, S["ok_bt"])
+        ls_it = torch.where(run, ls_it + 1, ls_it)
+        more = run & ~ok_bt & (ls_it < opts.max_ls)
+        return dict(
+            alpha_bt=torch.where(run & ~ok_t, alpha_bt * 0.5, alpha_bt), ok_bt=ok_bt,
+            ftype_bt=torch.where(run, ftype_t, S["ftype_bt"]), ls_it=ls_it, bt_run=more, bt_more=more.any(),
+        )
+
+    def seg_select(S):
+        cr, sp, ls, ok_1, soc_valid = S["cr"], S["sp"], S["ls"], S["ok_1"], S["soc_valid"]
         use_soc = soc_valid & ~ok_1
-        accepted = ok_1 | soc_valid | ok_bt
-        alpha = torch.where(ok_1, ls.alpha_max, torch.where(use_soc, a_soc, alpha_bt))
+        accepted = ok_1 | soc_valid | S["ok_bt"]
+        alpha = torch.where(ok_1, ls.alpha_max, torch.where(use_soc, S["a_soc"], S["alpha_bt"]))
         alpha = torch.where(accepted, alpha, ls.alpha_max * (0.5**opts.max_ls))
-        is_ftype = torch.where(ok_1, ftype_1, torch.where(use_soc, ftype_soc, ftype_bt))
-        dz_f, ds_f, dlam_f = _sel(use_soc, dz_c, dz), _sel(use_soc, ds_c, ds), _sel(use_soc, dlam_c, dlam)
+        is_ftype = torch.where(ok_1, S["ftype_1"], torch.where(use_soc, S["ftype_soc"], S["ftype_bt"]))
+        dz_f, ds_f = _sel(use_soc, S["dz_c"], S["dz"]), _sel(use_soc, S["ds_c"], S["ds"])
+        dlam_f = _sel(use_soc, S["dlam_c"], S["dlam"])
 
         # augment the filter on h-type accepted steps
         add = (accepted & ~is_ftype)[:, None] & (
             torch.arange(opts.filter_size, device=device)[None, :]
             == (cr.filt_n % opts.filter_size)[:, None]
         )
-        filt_th = torch.where(add, ((1.0 - opts.gamma_theta) * ls.theta0)[:, None], cr.filt_theta)
-        filt_ph = torch.where(add, (ls.phi0 - opts.gamma_phi * ls.theta0)[:, None], cr.filt_phi)
-        filt_n = torch.where(accepted & ~is_ftype, cr.filt_n + 1, cr.filt_n)
-
-        z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n = v_advance(cr, sp, ls, alpha, dz_f, ds_f, dlam_f)
-
-        did_restore = ~accepted
-        resto_progress = false_b
-        if host((active & did_restore).any()):
-            stats.kkt_solves += 1
-            z_r, s_r, lam_r, progressed = v_restore(PB, cr, sp, ls)
-            z_n, s_n, lam_n = _sel(did_restore, z_r, z_n), _sel(did_restore, s_r, s_n), _sel(
-                did_restore, lam_r, lam_n
-            )
-            resto_progress = did_restore & progressed
-        soft_fails = torch.where(
-            accepted & solve_ok,
-            0,
-            torch.where(resto_progress, cr.soft_fails, cr.soft_fails + 1),
+        new = v_advance(cr, sp, ls, alpha, dz_f, ds_f, dlam_f)
+        return dict(
+            accepted=accepted, alpha=alpha,
+            filt_th=torch.where(add, ((1.0 - opts.gamma_theta) * ls.theta0)[:, None], cr.filt_theta),
+            filt_ph=torch.where(add, (ls.phi0 - opts.gamma_phi * ls.theta0)[:, None], cr.filt_phi),
+            filt_n=torch.where(accepted & ~is_ftype, cr.filt_n + 1, cr.filt_n),
+            new=new, resto_progress=torch.zeros_like(accepted), restore=(S["active"] & ~accepted).any(),
         )
-        wL_n, wU_n, yL_n, yU_n = v_clamp(PB, mu, z_n, s_n, wL_n, wU_n, yL_n, yU_n)
 
+    def seg_restore(S):
+        did_restore = ~S["accepted"]
+        z_r, s_r, lam_r, progressed = v_restore(S["pb"], S["cr"], S["sp"], S["ls"])
+        z_n, s_n, lam_n, *duals = S["new"]
+        new = (_sel(did_restore, z_r, z_n), _sel(did_restore, s_r, s_n), _sel(did_restore, lam_r, lam_n), *duals)
+        return dict(new=new, resto_progress=did_restore & progressed)
+
+    def seg_clamp(S):
+        cr, sp, accepted = S["cr"], S["sp"], S["accepted"]
+        soft_fails = torch.where(
+            accepted & S["solve_ok"],
+            0,
+            torch.where(S["resto_progress"], cr.soft_fails, cr.soft_fails + 1),
+        )
+        z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n = S["new"]
+        duals = v_clamp(S["pb"], sp.mu, z_n, s_n, wL_n, wU_n, yL_n, yU_n)
+        out = dict(soft_fails=soft_fails, new=(z_n, s_n, lam_n, *duals))
         if opts.recalc_lam and nc > 0:
             want = (
-                accepted & (alpha <= opts.recalc_lam_alpha) & (ls.theta0 <= opts.recalc_lam_feas_tol)
+                accepted & (S["alpha"] <= opts.recalc_lam_alpha) & (S["ls"].theta0 <= opts.recalc_lam_feas_tol)
             )
-            if host((active & want).any()):
-                stats.kkt_solves += 1
-                lam_n = _sel(want, v_refresh(PB, z_n, lam_n, wL_n, wU_n), lam_n)
+            out.update(want=want, refresh=(S["active"] & want).any())
+        return out
 
-        err_mu, err_0 = v_kkt_error(PB, z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n, mu)
+    def seg_refresh(S):
+        z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n = S["new"]
+        lam_n = _sel(S["want"], v_refresh(S["pb"], z_n, lam_n, wL_n, wU_n), lam_n)
+        return dict(new=(z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n))
+
+    def seg_close(S):
+        pb, cr, mu, active = S["pb"], S["cr"], S["sp"].mu, S["active"]
+        z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n = S["new"]
+        err_mu, err_0 = v_kkt_error(pb, z_n, s_n, lam_n, wL_n, wU_n, yL_n, yU_n, mu)
         # a non-finite trial point is a failed iteration: revert
         bad = ~torch.isfinite(err_0)
         z_n, s_n, lam_n = _sel(bad, cr.z, z_n), _sel(bad, cr.s, s_n), _sel(bad, cr.lam, lam_n)
@@ -1469,10 +1559,10 @@ def ipm_solve_batched(
         yL_n, yU_n = _sel(bad, cr.yL, yL_n), _sel(bad, cr.yU, yU_n)
         err_0 = torch.where(bad, cr.kkt_err, err_0)
         err_mu = torch.where(bad, torch.inf, err_mu)
-        soft_fails = torch.where(bad, cr.soft_fails + 1, soft_fails)
+        soft_fails = torch.where(bad, cr.soft_fails + 1, S["soft_fails"])
 
         if adaptive:
-            mu_next, mu_changed = mu, false_b
+            mu_next, mu_changed = mu, torch.zeros_like(bad)
         else:
             mu_next = torch.where(
                 err_mu <= opts.kappa_eps * mu,
@@ -1482,60 +1572,123 @@ def ipm_solve_batched(
             mu_next = torch.clamp(mu_next, min=opts.mu_min)
             mu_changed = mu_next < mu
         # the filter belongs to one barrier subproblem
-        reset = mu_changed | did_restore
-        fresh_th, fresh_ph = v_fresh_filter(PB)
-        filt_th, filt_ph = _sel(reset, fresh_th, filt_th), _sel(reset, fresh_ph, filt_ph)
-        filt_n = torch.where(reset, 1, filt_n)
+        reset = mu_changed | ~S["accepted"]
+        fresh_th, fresh_ph = v_fresh_filter(pb)
+        filt_th, filt_ph = _sel(reset, fresh_th, S["filt_th"]), _sel(reset, fresh_ph, S["filt_ph"])
+        filt_n = torch.where(reset, 1, S["filt_n"])
 
         converged = err_0 <= opts.tol
         diverged = ~torch.isfinite(err_0) | (torch.amax(torch.abs(z_n), dim=1) > 1e20)
         stalled = soft_fails >= opts.max_soft_fail
         status = torch.where(converged, 0, torch.where(diverged, 3, torch.where(stalled, 2, 1)))
-        return _Carry(
+        new = _Carry(
             z=z_n, s=s_n, lam=lam_n, wL=wL_n, wU=wU_n, yL=yL_n, yU=yU_n, mu=mu_next,
-            filt_theta=filt_th, filt_phi=filt_ph, filt_n=filt_n, delta_w_last=delta_w_last,
+            filt_theta=filt_th, filt_phi=filt_ph, filt_n=filt_n, delta_w_last=S["delta_w_last"],
             it=cr.it + 1, done=converged | diverged | stalled, status=status, kkt_err=err_0,
             soft_fails=soft_fails,
         )
+        carry = _Carry(*(_sel(active, a, b) for a, b in zip(new, cr)))
+        active = ~carry.done & (carry.it < opts.max_iter)
+        return dict(cr=carry, active=active, more=active.any())
 
-    # ---- set-up, multiplier init, outer loop ----
-    PB, z_init, s_init, wL0, wU0, yL0, yU0, g_init = v_setup(Z0, ZL, ZU, CL, CU)
-    lam_ls = None
-    if opts.lsq_lambda_init and nc > 0:
-        stats.kkt_solves += 1
-        lam_ls = vmap(kkt.lsq_lambda)(z_init, g_init, PB.sf, PB.sc)
-    carry = vmap(init_carry, in_dims=(0, 0, 0, None if lam_ls is None else 0, 0, 0, 0, 0))(
-        PB, z_init, s_init, lam_ls, wL0, wU0, yL0, yU0
-    )
+    segments = dict(zip(SEGMENTS, (seg_prologue, seg_reg_trial, seg_ls_setup, seg_soc, seg_bt_trial, seg_select,
+                                   seg_restore, seg_clamp, seg_refresh, seg_close)))
+    refresh_read = opts.recalc_lam and nc > 0
 
-    if opts.max_iter > 0:
-        while True:
-            active = ~carry.done & (carry.it < opts.max_iter)
-            if not host(active.any()):
-                break
-            new = step(carry, active)
-            carry = _Carry(*(_sel(active, a, b) for a, b in zip(new, carry)))
+    def drive(state, run, stats: BatchStats):
+        def go(name):
+            stats.segments[name] = stats.segments.get(name, 0) + 1
+            run(name)
+
+        def flag(name) -> bool:
+            stats.host_syncs += 1
+            return bool(state[name])
+
+        if opts.max_iter == 0:
+            return
+        while flag("more"):
+            go("prologue")
+            while True:
+                stats.kkt_solves += 1
+                go("reg_trial")
+                if not flag("reg_more"):
+                    break
+            go("ls_setup")
+            if flag("soc"):
+                stats.kkt_solves += 1
+                go("soc")
+            while flag("bt_more"):
+                go("bt_trial")
+            go("select")
+            if flag("restore"):
+                stats.kkt_solves += 1
+                go("restore")
+            go("clamp")
+            if refresh_read and flag("refresh"):
+                stats.kkt_solves += 1
+                go("refresh")
+            go("close")
             stats.iterations += 1
 
-    status = torch.where(carry.done, carry.status, 1)
-    status = torch.where(
-        (status != 0) & (status != 3) & (carry.kkt_err <= opts.acceptable_tol), 4, status
-    )
-    if opts.max_iter == 0:
-        status = torch.zeros_like(status)
-    z_out = torch.clamp(carry.z, PB.zl_orig, PB.zu_orig)
-    return IPMResult(
-        z=z_out,
-        lam=carry.lam * PB.sc / PB.sf[:, None],
-        zL=carry.wL / PB.sf[:, None],
-        zU=carry.wU / PB.sf[:, None],
-        s=carry.s,
-        yL=carry.yL,
-        yU=carry.yU,
-        objective=vmap(f)(z_out),
-        iterations=carry.it,
-        kkt_error=carry.kkt_err,
-        constraints_violation=vmap(exit_violation)(PB, carry.z, carry.s),
-        status=status,
-        successful=(status == 0) | (status == 4),
-    )
+    def epilogue(state) -> IPMResult:
+        PB, carry = state["pb"], state["cr"]
+        status = torch.where(carry.done, carry.status, 1)
+        status = torch.where(
+            (status != 0) & (status != 3) & (carry.kkt_err <= opts.acceptable_tol), 4, status
+        )
+        if opts.max_iter == 0:
+            status = torch.zeros_like(status)
+        z_out = torch.clamp(carry.z, PB.zl_orig, PB.zu_orig)
+        return IPMResult(
+            z=z_out,
+            lam=carry.lam * PB.sc / PB.sf[:, None],
+            zL=carry.wL / PB.sf[:, None],
+            zU=carry.wU / PB.sf[:, None],
+            s=carry.s,
+            yL=carry.yL,
+            yU=carry.yU,
+            objective=vmap(f)(z_out),
+            iterations=carry.it,
+            kkt_error=carry.kkt_err,
+            constraints_violation=vmap(exit_violation)(PB, carry.z, carry.s),
+            status=status,
+            successful=(status == 0) | (status == 4),
+        )
+
+    return BatchedIPM(setup=start, segments=segments, drive=drive, epilogue=epilogue)
+
+
+def ipm_solve_batched(
+    f: Callable,
+    c: Callable,
+    spec: NLPSpec,
+    z0,
+    zl,
+    zu,
+    cl,
+    cu,
+    options: IPMOptions = IPMOptions(),
+    kkt=None,
+    *,
+    device,
+    dtype: torch.dtype = torch.float64,
+    stats: Optional[BatchStats] = None,
+) -> IPMResult:
+    """Solve B instances of one NLP structure at once: z0, zl, zu (B, nz) and
+    cl, cu (B, nc), one instance per row. Returns an IPMResult whose every
+    field has a leading batch axis (iterations, status and successful are
+    (B,) tensors).
+
+    Each instance follows exactly the iterates `ipm_solve` gives it alone:
+    its own scaling, barrier parameter, regularization, filter and counters.
+    A loop runs another trip while ANY instance still needs one; instances
+    that finished, or that are outside a branch, keep their values
+    (`torch.where`), as under `jax.vmap` of the JAX solver. Derivatives and
+    the KKT operator run through `torch.func.vmap` of the per-instance
+    functions, so each KKT solve is ONE batched call (one launch of the CR
+    kernel for the whole batch with a CUDA `StructuredKKT(algorithm="cr")`).
+    `stats` (if given) counts the batched KKT solves, the host reads of loop
+    conditions, the outer iterations and the runs of each segment. This is
+    the eager run of `batched_ipm`'s segments, op by op on any device."""
+    prog = batched_ipm(f, c, spec, options, kkt, device=device, dtype=dtype)
+    return prog.eager(z0, zl, zu, cl, cu, BatchStats() if stats is None else stats)

@@ -5,8 +5,12 @@ and to its PyTorch port (on the CPU, in float64 unless stated) and compares
 the outputs. One intra-op thread per test worker: the suite runs under
 pytest-xdist with several workers on a shared machine."""
 
+import os
+import traceback
+
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 torch.set_num_threads(1)
 
@@ -248,10 +252,11 @@ CASES = {
 }
 
 
-def check_batch_solver_matches_jax(case):
+def check_batch_solver_matches_jax(case, **options):
     """The port's BatchSolver against the JAX BatchSolver (both given the
-    cyclic-reduction StructuredKKT) on one of CASES: same status and
-    iterations per instance, objective to 1e-8 relative, z to 1e-8 absolute."""
+    cyclic-reduction StructuredKKT) on one of CASES, with `options` beside
+    tol 1e-8 and 60 iterations at most: same status and iterations per
+    instance, objective to 1e-8 relative, z to 1e-8 absolute."""
     import jax.numpy as jnp
 
     from ctdirect_tpu import transcribe as transcribe_j
@@ -272,7 +277,7 @@ def check_batch_solver_matches_jax(case):
     np.testing.assert_array_equal(dt.control_col_indices(), dj.control_col_indices())
     z0, cl, cu, zl, zu = batch_inputs(dj, problem_j(c["name"]).init, seed=1,
                                       box_scale=c["box_scale"])
-    opts = dict(tol=1e-8, max_iter=60)
+    opts = dict(tol=1e-8, max_iter=60, **options)
     rj = BatchJ(dj, OptsJ(**opts), kkt=SJ(dj, algorithm="cr"))(
         *(jnp.asarray(a) for a in (z0, cl, cu, zl, zu))
     )
@@ -422,3 +427,71 @@ def spmd_sleeping_world(world, seconds):
     import time
 
     time.sleep(seconds)
+
+
+# ---- CUDA graph capture (tests/test_torch_tick_graph.py, tests/test_torch_batch_graph.py) ----
+
+_TORCH_DIR = os.path.dirname(torch.__file__)
+# PyTorch's dispatch machinery and Python tensor methods between an op's caller and a mode
+_MACHINERY = ("_compile.py", "_dynamo", "_python_dispatch.py", "_ops.py", "overrides.py", "_tensor.py", "functional.py")
+
+
+class CaptureHazards(TorchDispatchMode):
+    """Records every op that a CUDA graph capture refuses, or that would
+    wait for the device or copy host data to it in an eager tick:
+    - `aten::lift_fresh` (and `lift_fresh_copy`): a tensor made from host
+      data, which is what `torch.as_tensor` / `torch.tensor` of a Python
+      number, list or numpy array reaches, under `torch.func.vmap` as outside
+      it; on the card a host-to-device copy follows it, or a value fixed at
+      capture;
+    - `aten::_local_scalar_dense`: `.item()`, `bool()`, `float()` of a tensor;
+    - `aten::nonzero`, `aten::masked_select`: outputs whose shape depends on
+      the data (a sync);
+    - a copy from the CPU onto another device (`_to_copy` with a device,
+      `copy_` from a CPU tensor), whatever code asks for it; only a run on
+      the card can show one.
+    The first three count when the port or a user callable asks for them,
+    and a read-back also when its tensor is on a device. PyTorch's own
+    Python may make small CPU tensors of shape metadata that never reach the
+    device (torch 2.11's `jacfwd` / `hessian` make their basis offsets with
+    `torch.tensor(tensor_numels)`); those are not hazards."""
+
+    MADE = {"aten::lift_fresh", "aten::lift_fresh_copy"}
+    READ = {"aten::_local_scalar_dense", "aten::nonzero", "aten::masked_select"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = []
+        self.where = []  # the code that asked for each hazard
+
+    @staticmethod
+    def _issuer():
+        """The innermost frame outside this mode and PyTorch's dispatch
+        machinery: the code that asked for the op."""
+        for f in reversed(traceback.extract_stack()):
+            if f.filename == __file__ and f.name in ("__torch_dispatch__", "_issuer"):
+                continue
+            if f.filename.startswith(_TORCH_DIR) and any(m in f.filename for m in _MACHINERY):
+                continue
+            return f
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func._schema.name
+        src = args[0] if args and isinstance(args[0], torch.Tensor) else None
+        what = None
+        if name in self.MADE or name in self.READ:
+            ours = not self._issuer().filename.startswith(_TORCH_DIR)
+            if ours or (name in self.READ and src is not None and src.device.type != "cpu"):
+                what = name
+        elif (name == "aten::_to_copy" and src is not None and src.device.type == "cpu"
+              and kwargs.get("device") not in (None, src.device)):
+            what = f"{name} cpu -> {kwargs['device']}"
+        elif (name == "aten::copy_" and isinstance(args[1], torch.Tensor) and args[1].device.type == "cpu"
+              and args[0].device.type != "cpu" and args[1].dim() > 0):
+            what = f"{name} cpu -> {args[0].device}"
+        if what is not None:
+            f = self._issuer()
+            self.seen.append(what)
+            self.where.append(f"{what} at {f.filename.rsplit('/', 1)[-1]}:{f.lineno} {f.line}")
+        return func(*args, **kwargs)
