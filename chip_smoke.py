@@ -11,7 +11,8 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      kernel, of 3-20 within a 2 s budget for the plain version);
   4. the front door: ct.solve(double integrator, N=100, trapeze) on the card
      against its analytic oracles;
-  5. the main path: cold start + 512 warm-started MPC controllers at N=100,
+  5. the main path: cold start (a compiled solve, as in phase 10) + 512
+     warm-started MPC controllers at N=100,
      3 Newton steps per tick, with the f32 and then the f64 block solve, run
      twice from the same warm state over the same x0 sequence: the eager
      tick (`MPCController.eager`) and the tick as the controller runs it on
@@ -49,21 +50,35 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      idle share, the CR kernel's share, and its CUDA launches, which must be
      the solve's KKT solves x (3 + 3 log2 64) = 21. Three instances re-solved
      unbatched must match, converged share >= CP_MIN_CONVERGED.
- 10. BASELINE config 2: ct.solve(goddard, Gauss-Legendre 2-stage constant
-     control, N=200, tol 1e-8, adaptive mu, kkt_mode="cr") with the f64 block
-     solve and with the f32 block solve + 2 refinement sweeps + Ruiz: both
-     successful, the objective within 1e-2 of 1.01257, the two runs agreeing to
-     1e-7 in objective and 1e-4 in controls; launches = the operator's block
-     solves (the unbatched cr path, B=1);
+ 10. BASELINE config 2: goddard, Gauss-Legendre 2-stage constant control,
+     N=200, tol 1e-8, adaptive mu, kkt_mode="cr", with the f64 block solve
+     and with the f32 block solve + 2 refinement sweeps + Ruiz, each on one
+     transcribed DOCP three times: the eager solve (`run.eager`, ipm_solve),
+     the first compiled solve_docp (the batched IPM at B=1, its segments
+     captured as CUDA graphs after a warm-up each; wall, capture s, segment
+     graphs, pool MiB) and a replayed one; iterations, host syncs per
+     iteration and kernel launches of each, launches = block solves (+ the
+     warm-ups' in the first call). Every compiled solve successful, the
+     objective within 1e-2 of 1.01257; the f32 and f64 runs agreeing to 1e-7
+     in objective and 1e-4 in controls; the replay within GRAPH_TOL of the
+     same B=1 program run op by op over every field (bitwise expected), with
+     the same KKT solves, syncs and segment runs; against the eager solve the
+     same status and the objective within 1e-8 (iterations side by side);
+     then a replayed solve under torch.profiler: device busy and idle share,
+     and the CR kernel's CUDA launches, which must be the block solves x
+     (3 + 3 log2 256) = 27;
  11. the 10-problem suite (benchmarks/sweep.py's EASY_SET) at N=250 trapeze
      under the sweep's options (f32 block solve, refinement, Ruiz, its
-     per-problem overrides; jackson with one more refinement sweep): every
-     problem ok by the sweep's rule and its objective within SUITE_JAX_RTOL
-     of the JAX package's on the CPU;
+     per-problem overrides; jackson with one more refinement sweep), each a
+     compiled solve as ct.solve runs it (first call: captures), then a
+     replay on the same DOCP (the first call's overhead is the difference):
+     every problem ok by the sweep's rule and its objective within
+     SUITE_JAX_RTOL of the JAX package's on the CPU;
  12. grid_continuation(goddard, grids (50, 100), GL2 constant control) with
-     phase 10's f32 options: the final stage successful and within 1e-6 of
-     the JAX package's final objective with the same grids on the CPU;
- 13. the fixture CI on the card: every registered problem but `pattern` and
+     phase 10's f32 options, compiled: the final stage successful and within
+     1e-6 of the JAX package's final objective with the same grids on the CPU;
+ 13. the fixture CI on the card (compiled solves; the segment graphs and
+     capture seconds of each printed): every registered problem but `pattern` and
      the suite (22 fixtures) under its recipe from the JAX CI
      (tests/test_all_ocp.py, copied as CI_CONFIG: grid, scheme, coarse-to-fine
      stages, warm mu, tol 1e-6, max_iter, mu_init), f64, kkt_mode="cr" but
@@ -280,10 +295,11 @@ CI_NEW = ("algal_bacterial", "glider", "insurance", "moonlander", "bioreactor_1d
           "bolza_freetf", "parametric", "schlogl", "electric_vehicle", "quadrotor", "space_shuttle",
           "truck_trailer", "swimmer", "swimmer2")
 CI_TRACED = "bolza_freetf"  # solved under utils.profiling.trace
-# The solves are host-bound at B=1, so phase 13 runs them in this many
-# processes that share the one card, the longest first (by their
-# iterations and walls on the card, PERF.md)
-CI_WORKERS = 6
+# Phase 13 runs the solves in this many processes that share the one card,
+# the longest first (by their iterations and walls on the card, PERF.md).
+# Compiled, 3 processes took 104.6 and 110.4 s, 6 took 106.6 and 108.6 s
+# (two runs each, PERF.md): a tie, so the fewer processes
+CI_WORKERS = 3
 CI_LONGEST_FIRST = ("orbit_transfer", "algal_bacterial", "quadrotor", "space_shuttle", "swimmer", "swimmer2",
                     "bioreactor_Ndays", "action", "moonlander", "truck_trailer")
 # Card overrides of kkt_mode="cr": these two run the JAX CI's own structured
@@ -643,6 +659,18 @@ def eager_and_replayed(name, kernel, ctrl, states0, xs, warmup, batch):
                 capture_s=graph.capture_s, pool_mib=graph.pool_bytes / 2**20)
 
 
+def cold_start_graphs(docp, options):
+    """How a controller's cold start ran: the compiled solve's segment
+    graphs, capture seconds and iterations, from the DOCP's cached solver."""
+    from ctdirect_tpu_torch.solver.interface import _get_solver
+
+    run = _get_solver(docp, options)
+    if not run.graphed or run.graph is None:
+        raise AssertionError("cold start: not a compiled solve")
+    return (f"compiled: {run.captures} segment graphs, capture {run.graph.capture_s:.3f} s, {run.stats.iterations} "
+            f"iterations, {run.stats.host_syncs} host syncs")
+
+
 def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
     from ctdirect_tpu_torch.parallel.mpc import MPCController, broadcast_state
 
@@ -655,13 +683,14 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
 
     ctrl = make_ctrl()
     t0 = time.perf_counter()
-    warm = ctrl.cold_start(options=ct.IPMOptions(tol=1e-8, max_iter=60))
+    cold_opts = ct.IPMOptions(tol=1e-8, max_iter=60)
+    warm = ctrl.cold_start(options=cold_opts)
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
 
     name = "f32" if solve_dtype == torch.float32 else "f64"
-    log(f"main path, {name} block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={B} N={N} x {ITERS} "
-        f"Newton steps, eager and replayed")
+    log(f"main path, {name} block solve: cold start {cold_s:.2f} s ({cold_start_graphs(docp, cold_opts)}); "
+        f"{len(xs)} ticks x B={B} N={N} x {ITERS} Newton steps, eager and replayed")
     both = eager_and_replayed(f"{name} block solve", kernel, ctrl, broadcast_state(warm, B), xs, WARMUP_TICKS, B)
     replay = both["replay"]
     u0 = replay["u0s"][-1]
@@ -690,6 +719,24 @@ def profiled(tick, states, xs, ticks):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / ticks * 1e3
     return prof, wall
+
+
+def profiled_solve(fn):
+    """fn() under torch.profiler: its wall s, device busy s, CR kernel s,
+    the CR kernel's CUDA launches seen and all kernel launches seen."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = device_kernels(prof)
+    cr = [e for e in dev if CR_KERNELS.search(e.key)]
+    return dict(wall=wall, busy=sum(e.self_device_time_total for e in dev) / 1e6,
+                cr=sum(e.self_device_time_total for e in cr) / 1e6, cr_launches=sum(e.count for e in cr),
+                launches=sum(e.count for e in dev))
 
 
 def device_kernels(prof):
@@ -844,15 +891,17 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
 
     ctrl = make_ctrl()
     t0 = time.perf_counter()
-    warm = ctrl.cold_start(options=ct.IPMOptions(tol=1e-8, max_iter=200), init=prob.init)
+    cold_opts = ct.IPMOptions(tol=1e-8, max_iter=200)
+    warm = ctrl.cold_start(options=cold_opts, init=prob.init)
+    torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     states0 = broadcast_state(warm, CP_B)
     rng = np.random.default_rng(0)
     xs = [torch.tensor(cartpole_x0(rng, CP_B), dtype=torch.float64, device=device)
           for _ in range(CP_WARMUP + CP_TICKS)]
 
-    log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s; {len(xs)} ticks x B={CP_B} N={CP_N} "
-        f"x {ITERS} Newton steps, eager and replayed")
+    log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s ({cold_start_graphs(docp, cold_opts)}); "
+        f"{len(xs)} ticks x B={CP_B} N={CP_N} x {ITERS} Newton steps, eager and replayed")
     both = eager_and_replayed("cart-pole", kernel, ctrl, states0, xs, CP_WARMUP, CP_B)
     replay = both["replay"]
     u0, states = replay["u0s"][-1], replay["states"]
@@ -956,23 +1005,12 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
     log(f"  converged {100 * ok:.2f}%, median iterations {np.median(its):.0f} (max {its.max()})")
 
     # the device split of one more graphed solve
-    from torch.profiler import ProfilerActivity, profile
-
     solver.stats = BatchStats()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        solver(z0, cl, cu)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = device_kernels(prof)
-    busy = sum(e.self_device_time_total for e in dev) / 1e6
-    cr = sum(e.self_device_time_total for e in dev if CR_KERNELS.search(e.key)) / 1e6
-    cr_launches = sum(e.count for e in dev if CR_KERNELS.search(e.key))
+    split = profiled_solve(lambda: solver(z0, cl, cu))
+    wall, busy, cr, cr_launches = split["wall"], split["busy"], split["cr"], split["cr_launches"]
     want = solver.stats.kkt_solves * per
     if cr_launches != want:
         raise AssertionError(f"batch solve: {cr_launches} CR kernel events in the profile, planned {want}")
-    split = dict(wall=wall, busy=busy, cr=cr, cr_launches=cr_launches, launches=sum(e.count for e in dev))
     replay = runs["graphed replay"]["wall"]
     log(f"  device split, graphed solve under torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%; idle {100 * (1 - busy / replay):.1f}% of "
@@ -1009,53 +1047,140 @@ def timed_solve(kernel, fn):
     return out, time.perf_counter() - t0, kernel.launches, kernel.grid_launches
 
 
+def solve_diff(a, b):
+    """Max abs difference of two (IPMResult, postprocess) pairs over every
+    field (inf where their NaNs or non-float fields differ)."""
+    worst = 0.0
+    for x, y in zip((*a[0], *a[1]), (*b[0], *b[1])):
+        if not isinstance(x, torch.Tensor):
+            worst = max(worst, 0.0 if x == y else float("inf"))
+            continue
+        worst = max(worst, result_diff([x], [y]))
+    return worst
+
+
 def phase_goddard(ct, get_problem, kernel, kres):
-    """BASELINE config 2 through ct.solve, f64 and f32 + refinement + Ruiz
-    block solves on the unbatched cr path."""
+    """BASELINE config 2 on one transcribed DOCP per block solve (f64, and
+    f32 + refinement + Ruiz), three times: the eager solve (`run.eager`),
+    the first compiled solve_docp (its segment graphs captured) and a
+    replayed one; the replay held to the same B=1 program run op by op and
+    to the eager solve, then one more replay under torch.profiler."""
+    from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters
+    from ctdirect_tpu_torch.solver.interface import _get_solver
+    from ctdirect_tpu_torch.solver.ipm import BatchStats
+
     p = get_problem("goddard")
-    sols, paths = {}, []
+    per = grid_per_solve(chain_blocks(GD_N))
+    sols, paths, rows = {}, [], {}
     for tag, dtype in (("f64", torch.float64), ("f32", torch.float32)):
         opts = ct.IPMOptions(kkt_solve_dtype=None if tag == "f64" else "f32", **GD_OPTS)
-        sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve(
-            p.ocp, grid_size=GD_N, scheme=GD_SCHEME, init=p.init, options=opts, device="cuda"))
-        solves = sol.infos["kkt_block_solves"]
-        if launches != solves:
-            raise AssertionError(f"goddard {tag}: kernel launched {launches} times, {solves} block solves")
-        paths.append(path_record(f"goddard_gl2_N{GD_N}_{tag}", dtype, launches, grid,
-                                 launches * grid_per_solve(chain_blocks(GD_N))))
-        if not sol.successful:
-            raise AssertionError(f"goddard {tag}: {sol.message}")
-        if not abs(sol.objective - GD_OBJ) <= 1e-2 * GD_OBJ:
-            raise AssertionError(f"goddard {tag}: objective {sol.objective!r} vs {GD_OBJ}")
-        if not np.isfinite(sol.control_values).all() or sol.control_values.shape != (GD_N + 1, 1):
-            raise AssertionError(f"goddard {tag}: controls not finite or of shape {sol.control_values.shape}")
-        share = launches * shape_ms(kres, dtype, P_GD, BS_GD, WB_GD, 1) / 1e3 / wall
+        docp = ct.transcribe(p.ocp, grid_size=GD_N, scheme=GD_SCHEME, device="cuda")
+        run = _get_solver(docp, opts)
+        args = (docp.initial_guess(p.init), docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
         log(f"goddard GL2 N={GD_N} cr, {tag} block solve{' + 2 refinement sweeps + Ruiz' * (tag == 'f32')}: "
-            f"status {sol.status}, {sol.iterations} iterations, objective {sol.objective!r}, tf "
-            f"{sol.variable[0]:.6f}, {wall:.2f} s wall; kernel launches {launches} = block solves ({grid} CUDA launches); "
-            f"kernel share {100 * share:.1f}% (launches x phase-3 ms / wall)")
-        sols[tag] = sol
+            f"eager, first compiled call, replayed call (one DOCP)")
+        blocks0 = run.kkt.block_solves
+        (eager, _), wall, launches, grid = timed_solve(kernel, lambda: run.eager(*args))
+        if launches != run.kkt.block_solves - blocks0:
+            raise AssertionError(f"goddard {tag} eager: kernel launched {launches} times, "
+                                 f"{run.kkt.block_solves - blocks0} block solves")
+        paths.append(path_record(f"goddard_gl2_N{GD_N}_{tag}_eager", dtype, launches, grid, launches * per))
+        share = launches * shape_ms(kres, dtype, P_GD, BS_GD, WB_GD, 1) / 1e3 / wall
+        log(f"  eager: status {eager.status}, {eager.iterations} iterations, objective {float(eager.objective)!r}, "
+            f"{wall:.3f} s wall; kernel launches {launches} = block solves ({grid} CUDA launches); kernel share "
+            f"{100 * share:.1f}% (launches x phase-3 ms / wall)")
+        row = dict(eager_s=wall, eager_iterations=eager.iterations)
+        for call, suffix in (("first compiled call", "_first_call"), ("replayed call", "")):
+            run.stats = BatchStats()
+            capture0 = run.graph.capture_s if run.graph else 0.0
+            sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve_docp(docp, init=p.init, options=opts))
+            blocks, warm = sol.infos["kkt_block_solves"], sol.infos["kkt_warmup_block_solves"]
+            if launches != blocks + warm or (warm != 0) != (suffix == "_first_call"):
+                raise AssertionError(f"goddard {tag} {call}: kernel launched {launches} times, {blocks} block "
+                                     f"solves + {warm} in segment warm-ups")
+            if not sol.successful:
+                raise AssertionError(f"goddard {tag} {call}: {sol.message}")
+            if not abs(sol.objective - GD_OBJ) <= 1e-2 * GD_OBJ:
+                raise AssertionError(f"goddard {tag} {call}: objective {sol.objective!r} vs {GD_OBJ}")
+            if not np.isfinite(sol.control_values).all() or sol.control_values.shape != (GD_N + 1, 1):
+                raise AssertionError(f"goddard {tag} {call}: controls not finite or of shape "
+                                     f"{sol.control_values.shape}")
+            st = run.stats
+            paths.append(path_record(f"goddard_gl2_N{GD_N}_{tag}{suffix}", dtype, launches, grid, launches * per))
+            log(f"  {call}: status {sol.status}, {sol.iterations} iterations, objective {sol.objective!r}, tf "
+                f"{sol.variable[0]:.6f}, {wall:.3f} s wall; {st.host_syncs} host syncs "
+                f"({st.host_syncs / max(st.iterations, 1):.2f} per iteration), {st.kkt_solves} KKT solves; kernel "
+                f"launches {launches} = {blocks} block solves + {warm} in segment warm-ups ({grid} CUDA launches); "
+                f"capture {run.graph.capture_s - capture0:.3f} s, {run.captures} segment graphs, pool "
+                f"{run.graph.pool_bytes / 2**20:.1f} MiB")
+            row[call] = dict(wall=wall, syncs=st.host_syncs / max(st.iterations, 1), launches=launches)
+        row.update(capture_s=run.graph.capture_s, captures=run.captures, pool_mib=run.graph.pool_bytes / 2**20)
+
+        # the replay against the same B=1 program op by op, and against the eager solve
+        run.stats = BatchStats()
+        got = run(*args)
+        counts, run.stats = run.stats, BatchStats()
+        ref = run.batched(BatchGraph(run.program.segments, graph_counters(run.kkt), "cuda", capture=False), *args)
+        diff = solve_diff(got, ref)
+        if not (diff <= GRAPH_TOL and counts == run.stats):
+            raise AssertionError(f"goddard {tag}: the replay differs from the B=1 program op by op by {diff:.3e} "
+                                 f"(bound {GRAPH_TOL:g}), stats {counts} vs {run.stats}")
+        res = got[0]
+        rel = abs(float(res.objective) - float(eager.objective)) / abs(float(eager.objective))
+        if not (res.status == eager.status and rel <= 1e-8):
+            raise AssertionError(f"goddard {tag}: compiled status {res.status}, objective {float(res.objective)!r} "
+                                 f"vs eager status {eager.status}, {float(eager.objective)!r}")
+        log(f"  replay vs the B=1 program op by op: max abs diff {diff:.3e} over every field "
+            f"({'bitwise equal' if diff == 0 else 'not bitwise'}; bound {GRAPH_TOL:g}), same KKT solves, syncs and "
+            f"segment runs; vs eager: status {res.status} both, iterations {res.iterations} compiled vs "
+            f"{eager.iterations} eager, objective rel diff {rel:.2e} (bound 1e-8); speed-up of the replay over the "
+            f"eager solve {row['eager_s'] / row['replayed call']['wall']:.2f}x")
+
+        blocks0 = run.kkt.block_solves
+        split = profiled_solve(lambda: run(*args))
+        want = (run.kkt.block_solves - blocks0) * per
+        if split["cr_launches"] != want:
+            raise AssertionError(f"goddard {tag}: {split['cr_launches']} CR kernel events in the profile of a "
+                                 f"replayed solve, planned {want} (block solves x {per})")
+        log(f"  device split, replayed solve under torch.profiler: wall {split['wall']:.3f} s, device busy "
+            f"{split['busy']:.3f} s ({100 * split['busy'] / split['wall']:.1f}%, idle "
+            f"{100 * (1 - split['busy'] / split['wall']):.1f}%), CR kernel {split['cr']:.3f} s "
+            f"({100 * split['cr'] / split['busy']:.1f}% of busy, {split['cr_launches']} CUDA launches of it seen = "
+            f"{want // per} block solves x {per}), {split['launches']} kernel launches")
+        row["split"] = split
+        sols[tag], rows[tag] = sol, row
     dobj = abs(sols["f32"].objective - sols["f64"].objective) / abs(sols["f64"].objective)
     du = np.max(np.abs(sols["f32"].control_values - sols["f64"].control_values))
     if not (dobj <= 1e-7 and du <= 1e-4):
         raise AssertionError(f"goddard f32 vs f64: objective rel diff {dobj:.3e}, controls {du:.3e}")
     log(f"goddard f32 vs f64: objective rel diff {dobj:.3e}, controls L-inf {du:.3e}")
-    return dict(sols=sols, paths=paths)
+    return dict(sols=sols, paths=paths, rows=rows)
 
 
 def phase_suite(ct, get_problem, kernel):
-    """The 10-problem suite under the sweep's options, one ct.solve each."""
-    grid_total, total, rows = 0, 0, []
+    """The 10-problem suite under the sweep's options, one compiled solve
+    each as `ct.solve` runs it (transcribe, solve_docp: the segment graphs
+    captured, its DOCP's solvers dropped after), with one more solve_docp
+    of the same DOCP before the drop (replay only): their difference is
+    the first call's overhead."""
+    grid_total, total, rows, first_s, replay_s = 0, 0, [], 0.0, 0.0
     for name in SUITE:
         p = get_problem(name)
         opts = ct.IPMOptions(**SUITE_OPTS, **SUITE_OVERRIDES.get(name, {}), **SUITE_CARD_OVERRIDES.get(name, {}))
-        sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve(
-            p.ocp, grid_size=SUITE_N, scheme="trapeze", init=p.init, options=opts, device="cuda"))
-        if launches != sol.infos["kkt_block_solves"]:
-            raise AssertionError(f"suite {name}: kernel launched {launches} times, "
-                                 f"{sol.infos['kkt_block_solves']} block solves")
+        docp = ct.transcribe(p.ocp, grid_size=SUITE_N, scheme="trapeze", device="cuda")
+        sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve_docp(docp, init=p.init, options=opts))
+        again, wall2, _, _ = timed_solve(kernel, lambda: ct.solve_docp(docp, init=p.init, options=opts))
+        docp.release_solvers()
+        blocks, warm = sol.infos["kkt_block_solves"], sol.infos["kkt_warmup_block_solves"]
+        if launches != blocks + warm:
+            raise AssertionError(f"suite {name}: kernel launched {launches} times, {blocks} block solves + {warm} "
+                                 f"in segment warm-ups")
+        if (again.status, again.iterations, again.objective) != (sol.status, sol.iterations, sol.objective):
+            raise AssertionError(f"suite {name}: the replayed solve (status {again.status}, {again.iterations} it, "
+                                 f"objective {again.objective!r}) differs from the first")
         grid_total += grid
         total += launches
+        first_s, replay_s = first_s + wall, replay_s + wall2
         ok = bool(sol.successful) and (p.obj is None or abs(sol.objective - p.obj) <= 1e-2 * abs(p.obj))
         ref = SUITE_JAX_CPU[name]
         rel = abs(sol.objective - ref) / abs(ref)
@@ -1063,14 +1188,16 @@ def phase_suite(ct, get_problem, kernel):
         rows.append((name, ok, rel, rtol))
         log(f"  suite {name}{' ' + str(SUITE_CARD_OVERRIDES[name]) if name in SUITE_CARD_OVERRIDES else ''}: "
             f"{'ok' if ok else 'FAIL'} (status {sol.status}), objective {sol.objective!r} (JAX CPU {ref!r}, "
-            f"rel diff {rel:.2e}, bound {rtol:g}), {sol.iterations} iterations, {wall:.2f} s wall, "
-            f"kernel launches {launches} ({grid} CUDA launches)")
+            f"rel diff {rel:.2e}, bound {rtol:g}), {sol.iterations} iterations, {wall:.2f} s wall (replay "
+            f"{wall2:.2f} s; {sol.infos['captures']} segment graphs, capture {sol.infos['capture_s']:.3f} s), "
+            f"kernel launches {launches} = {blocks} block solves + {warm} in warm-ups ({grid} CUDA launches)")
     bad = [r for r in rows if not (r[1] and r[2] <= r[3])]
     if bad:
         raise AssertionError(f"suite: not ok or off the JAX CPU objective (name, ok, rel diff, bound): {bad}")
     log(f"suite N={SUITE_N} trapeze, f32 cr + refinement: {len(rows)}/{len(SUITE)} ok, objectives within "
-        f"{max(r[2] for r in rows):.2e} of the JAX package's on the CPU; {total} kernel launches "
-        f"({grid_total} CUDA launches)")
+        f"{max(r[2] for r in rows):.2e} of the JAX package's on the CPU; {first_s:.2f} s of compiled first calls, "
+        f"{replay_s:.2f} s replayed on the same DOCPs (first-call overhead {first_s - replay_s:.2f} s); {total} "
+        f"kernel launches ({grid_total} CUDA launches)")
     return path_record(f"suite_trapeze_N{SUITE_N}", torch.float32, total, grid_total,
                        total * grid_per_solve(chain_blocks(SUITE_N)))
 
@@ -1083,9 +1210,10 @@ def phase_grid_continuation(ct, get_problem, kernel, cold):
     opts = ct.IPMOptions(kkt_solve_dtype="f32", **GD_OPTS)
     sols, wall, launches, grid = timed_solve(kernel, lambda: grid_continuation(
         p.ocp, GC_GRIDS, scheme=GD_SCHEME, options=opts, init=p.init, device="cuda"))
-    solves = sum(s.infos["kkt_block_solves"] for s in sols)
-    if launches != solves:
-        raise AssertionError(f"grid continuation: kernel launched {launches} times, {solves} block solves")
+    per_stage = [s.infos["kkt_block_solves"] + s.infos["kkt_warmup_block_solves"] for s in sols]
+    if launches != sum(per_stage):
+        raise AssertionError(f"grid continuation: kernel launched {launches} times, {per_stage} block solves "
+                             f"(warm-ups included) per stage")
     final = sols[-1]
     rel = abs(final.objective - GC_JAX_CPU) / abs(GC_JAX_CPU)
     if not (final.successful and rel <= 1e-6):
@@ -1100,9 +1228,10 @@ def phase_grid_continuation(ct, get_problem, kernel, cold):
     log(f"grid continuation goddard GL2 {GC_GRIDS}, f32 cr: final status {final.status}, objective "
         f"{final.objective!r} (rel diff {rel:.2e} to the JAX package's at N={GC_GRIDS[-1]} on the CPU, "
         f"{abs(final.objective - cold.objective) / abs(cold.objective):.2e} to phase 10's at N={GD_N}), "
-        f"iterations {its} vs {cold.iterations} cold at N={GD_N}; {wall:.2f} s wall; kernel launches "
-        f"{launches} = block solves ({grid} CUDA launches)")
-    want = sum(s.infos["kkt_block_solves"] * grid_per_solve(chain_blocks(n_)) for s, n_ in zip(sols, GC_GRIDS))
+        f"iterations {its} vs {cold.iterations} cold at N={GD_N}; {wall:.2f} s wall (compiled, "
+        f"{sum(s.infos['captures'] for s in sols)} segment graphs captured); kernel launches {launches} = block "
+        f"solves + their warm-ups ({grid} CUDA launches)")
+    want = sum(k * grid_per_solve(chain_blocks(n_)) for k, n_ in zip(per_stage, GC_GRIDS))
     return path_record(f"grid_continuation_goddard_{'_'.join(map(str, GC_GRIDS))}", torch.float32, launches,
                        grid, want)
 
@@ -1149,7 +1278,9 @@ def ci_solve(ct, prob, cfg, opts, device="cuda"):
                                  init=prob.init, device=device)
         return sols, grids
     docp = ct.transcribe(prob.ocp, grid_size=cfg.grid, scheme=cfg.scheme, device=device)
-    return [ct.solve_docp(docp, init=prob.init, options=opts)], [cfg.grid]
+    sol = ct.solve_docp(docp, init=prob.init, options=opts)
+    docp.release_solvers()  # as ct.solve does: the graphs go with the DOCP
+    return [sol], [cfg.grid]
 
 
 def trace_cr_events(path):
@@ -1183,7 +1314,8 @@ def ci_fixture(name):
         with timed(name, timings, sync=torch.device("cuda")):
             sols, grids = ci_solve(ct, prob, cfg, opts)
     launches, grid = kernel.launches, kernel.grid_launches
-    solves = [s.infos["kkt_block_solves"] for s in sols]
+    # each stage's DOCP is new, so each solve captures its graphs (warm-ups included)
+    solves = [s.infos["kkt_block_solves"] + s.infos["kkt_warmup_block_solves"] for s in sols]
     cr = opts.kkt_mode == "cr"
     want = (sum(solves), sum(k * grid_per_solve(chain_blocks(g)) for k, g in zip(solves, grids))) if cr else (0, 0)
     if (launches, grid) != want:
@@ -1194,6 +1326,7 @@ def ci_fixture(name):
     return dict(name=name, why=ci_verdict(name, prob, cfg, sol), status=sol.status, objective=sol.objective,
                 stored=prob.obj, maximize=prob.ocp.maximize, iterations=[s.iterations for s in sols], grids=grids,
                 block_solves=solves, wall_s=timings.records[name][-1], launches=launches, grid_launches=grid,
+                captures=[s.infos["captures"] for s in sols], capture_s=sum(s.infos["capture_s"] for s in sols),
                 kkt_mode=opts.kkt_mode, bs=d.bw + d.cw, wb=d.tail_w + d.q + d.n_path + d.n_boundary,
                 fuel=fuel_integral(sol) if name == "orbit_transfer" else None,
                 cr_events=len(trace_cr_events(trace_dir / TRACE_FILE)) if name == CI_TRACED else None)
@@ -1231,8 +1364,9 @@ def check_gj_on_card(widths=(14, 18, 21, 28, 49), seeds=3, mats=4):
 def phase_fixture_ci(ct, get_problem, problem_names):
     """Every registered problem but CI_SKIP and the suite, under
     the JAX CI's recipe and oracle, f64, kkt_mode="cr" (the CR kernel at B=1)
-    but for CI_CARD_OVERRIDES; the solves are host-bound, so CI_WORKERS
-    processes share the card, the longest fixtures first. Before them, the
+    but for CI_CARD_OVERRIDES, compiled (each stage's DOCP captures its
+    segment graphs); CI_WORKERS processes share the card, the longest
+    fixtures first. Before them, the
     structure check of every new fixture on a CUDA DOCP at N=4 and the
     bit-for-bit check of the structured solve's Gauss-Jordan."""
     import multiprocessing
@@ -1258,8 +1392,9 @@ def phase_fixture_ci(ct, get_problem, problem_names):
                 f"{r['status']}, objective {r['objective']!r} (stored {stored})"
                 f"{'' if r['fuel'] is None else ', fuel %.6f' % r['fuel']}, iterations {its}, {r['wall_s']:.2f} s "
                 f"wall{' under torch.profiler' if r['name'] == CI_TRACED else ''}, kkt_mode {r['kkt_mode']}, "
-                f"block solves {sum(r['block_solves'])}, kernel launches {r['launches']} ({r['grid_launches']} "
-                f"CUDA launches), bs {r['bs']} wb {r['wb']}")
+                f"segment graphs {' + '.join(map(str, r['captures']))} (capture {r['capture_s']:.2f} s), block "
+                f"solves {sum(r['block_solves'])} (warm-ups included), kernel launches {r['launches']} "
+                f"({r['grid_launches']} CUDA launches), bs {r['bs']} wb {r['wb']}")
             rows.append(r)
     elapsed = time.perf_counter() - t0
     rows.sort(key=lambda r: r["name"])
@@ -1274,7 +1409,9 @@ def phase_fixture_ci(ct, get_problem, problem_names):
         raise AssertionError(f"fixture CI: the JAX CI's oracle fails on the card for {failed}")
     total, grid_total = sum(r["launches"] for r in rows), sum(r["grid_launches"] for r in rows)
     log(f"fixture CI: {len(rows)}/{len(names)} ok under the JAX CI's oracle, f64; {elapsed:.1f} s in "
-        f"{CI_WORKERS} processes on the card ({sum(r['wall_s'] for r in rows):.1f} s of solve walls); "
+        f"{CI_WORKERS} processes on the card ({sum(r['wall_s'] for r in rows):.1f} s of solve walls, "
+        f"{sum(r['capture_s'] for r in rows):.1f} s of it capturing {sum(sum(r['captures']) for r in rows)} "
+        f"segment graphs); "
         f"{sum(sum(r['iterations']) for r in rows)} iterations; {total} kernel launches ({grid_total} CUDA launches)")
     want = sum(sum(k * grid_per_solve(chain_blocks(g)) for k, g in zip(r["block_solves"], r["grids"]))
                for r in rows if r["kkt_mode"] == "cr")

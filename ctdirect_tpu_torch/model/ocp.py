@@ -130,11 +130,23 @@ def _as_bounds(val, dim: int, default: float) -> Array:
 
 
 def _state_index(k: int, rg):
-    """Index into a state vector: a slice for the leading k components (a view,
-    no index tensor to move to the device on every call), else a list."""
+    """Index into a state vector: a slice where the components are
+    consecutive (the leading k by default), else a tuple of ints for
+    `_take`. Neither makes an index tensor from host data on every call,
+    which a CUDA graph could not capture."""
     if rg is None:
         return slice(0, k)
-    return [int(i) for i in np.asarray(rg, dtype=int)]
+    rg = [int(i) for i in np.asarray(rg, dtype=int)]
+    if rg == list(range(rg[0], rg[0] + len(rg))):
+        return slice(rg[0], rg[0] + len(rg))
+    return tuple(rg)
+
+
+def _take(x, idx):
+    """x[idx] for a `_state_index`: a view, or the entries stacked."""
+    if isinstance(idx, slice):
+        return x[idx]
+    return torch.stack([x[i] for i in idx])
 
 
 class PreOCP:
@@ -222,7 +234,7 @@ class PreOCP:
         idx = _state_index(len(x0), rg)
 
         def f(xa, xb, v, idx=idx):
-            return xa[idx]
+            return _take(xa, idx)
 
         return self.boundary_constraint(f, x0, x0)
 
@@ -231,7 +243,7 @@ class PreOCP:
         idx = _state_index(len(xf), rg)
 
         def f(xa, xb, v, idx=idx):
-            return xb[idx]
+            return _take(xb, idx)
 
         return self.boundary_constraint(f, xf, xf)
 

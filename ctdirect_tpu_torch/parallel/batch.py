@@ -28,130 +28,15 @@ each rank graphs its own rows; the all_gather stays outside the graphs."""
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
 
 from ctdirect_tpu_torch.parallel.time_shard import ShardAxis
-from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
+from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters
 from ctdirect_tpu_torch.solver.interface import make_kkt
 from ctdirect_tpu_torch.solver.ipm import BatchStats, IPMOptions, IPMResult, batched_ipm, make_spec
-from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
 from ctdirect_tpu_torch.transcription.docp import DOCP
-
-
-class BatchGraph:
-    """The segments of one batched solve captured as CUDA graphs, for one
-    input signature (the batch size B; all else is fixed per solver).
-
-    `state` holds the solve's persistent tensors, the only way data passes
-    between segments: `load` copies a solve's set-up into them and `run(name)`
-    replays segment `name`, whose graph computes the segment from `state` and
-    copies what it returns back into `state` (its commit). No graph reads
-    another's outputs, so all share one memory pool and replay in any order,
-    as the host's decisions order them.
-
-    A segment is captured at its first use, following `torch.cuda.graph`'s
-    protocol: its body runs once on a side stream first (into scratch
-    outputs, which size the state entries it adds), so that first-use work
-    such as the CR kernel's build and load happens outside the capture; the
-    kernel launches of that warm-up are real and counted, and `warmup_added`
-    sums what the warm-ups added to each counter. The capture itself
-    launches nothing, so the plain-int counters a segment moves (`counters`:
-    (object, attribute) pairs) are put back after it, and each replay adds
-    what the capture added. A capture or replay that fails raises.
-
-    capture=False runs each segment's body and commit op by op instead of a
-    graph: the persistent-state path on a device without graphs (the CPU
-    tests run it)."""
-
-    def __init__(self, segments, counters, device, capture: bool = True):
-        self.segments = segments
-        self.counters = counters
-        self.device = torch.device(device)
-        self.capture = capture
-        self.state = {}
-        self.graphs = {}  # segment name -> (CUDA graph, what one replay adds to each counter)
-        self.pool = torch.cuda.graph_pool_handle() if capture else None
-        self.capture_s = 0.0
-        self.pool_bytes = 0  # the graphs' shared pool (their intermediates and outputs)
-        self.warmup_added = dict.fromkeys(counters, 0)
-
-    def load(self, state):
-        """Copy a solve's starting state into the persistent tensors (made at
-        the first load, outside any capture)."""
-        for key, value in state.items():
-            if key in self.state:
-                self._copy(key, value)
-            else:
-                self.state[key] = tree_map(lambda x: x.clone(), value)
-
-    def _copy(self, key, value):
-        for dst, src in zip(tree_leaves(self.state[key]), tree_leaves(value)):
-            if dst.shape != src.shape or dst.dtype != src.dtype:
-                raise RuntimeError(f"state entry {key!r}: {tuple(src.shape)} {src.dtype} does not fit "
-                                   f"{tuple(dst.shape)} {dst.dtype}")
-            dst.copy_(src)
-
-    def _add_entries(self, out):
-        """Persistent tensors for the entries `out` adds to the state."""
-        for key, value in out.items():
-            if key not in self.state:
-                self.state[key] = tree_map(torch.empty_like, value)
-
-    def _commit(self, out):
-        for key, value in out.items():
-            self._copy(key, value)
-
-    def _counts(self):
-        return [getattr(obj, name) for obj, name in self.counters]
-
-    def _capture(self, name):
-        fn = self.segments[name]
-        device = self.device
-        before = self._counts()
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            scratch = fn(self.state)
-        torch.cuda.current_stream(device).wait_stream(side)
-        for counter, a, b in zip(self.counters, self._counts(), before):
-            self.warmup_added[counter] += a - b
-        self._add_entries(scratch)
-        del scratch
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        before = self._counts()
-        graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                self._commit(fn(self.state))
-        finally:
-            added = [a - b for a, b in zip(self._counts(), before)]
-            for (obj, attr), b in zip(self.counters, before):
-                setattr(obj, attr, b)
-        self.capture_s += time.perf_counter() - t0
-        self.pool_bytes += torch.cuda.memory_reserved(device) - reserved
-        self.graphs[name] = (graph, added)
-
-    def run(self, name):
-        """Segment `name` on `state`: a replay of its graph (captured first
-        at the segment's first use)."""
-        if not self.capture:
-            out = self.segments[name](self.state)
-            self._add_entries(out)
-            self._commit(out)
-            return
-        if name not in self.graphs:
-            self._capture(name)
-        graph, added = self.graphs[name]
-        graph.replay()
-        for (obj, attr), a in zip(self.counters, added):
-            setattr(obj, attr, getattr(obj, attr) + a)
 
 
 class BatchSolver:
@@ -208,10 +93,7 @@ class BatchSolver:
         self.stats = BatchStats()
         self.graphed = device.type == "cuda"
         self.graphs = {}
-        # the plain-int counters a solve moves (a replay adds what its capture added)
-        self._counters = [(cr_solve_batched, "launches"), (cr_solve_batched, "grid_launches")]
-        if isinstance(self.kkt, StructuredKKT):
-            self._counters.append((self.kkt, "block_solves"))
+        self._counters = graph_counters(self.kkt)
 
     @property
     def captures(self) -> int:
@@ -257,20 +139,15 @@ class BatchSolver:
         return self.program.eager(z0, zl, zu, cl, cu, self.stats)
 
     def _replayed(self, z0, zl, zu, cl, cu):
-        prog = self.program
-        state = prog.setup(z0, zl, zu, cl, cu, self.stats)
         key = z0.shape[0]
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = BatchGraph(prog.segments, self._counters, self.device)
+            graph = self.graphs[key] = BatchGraph(self.program.segments, self._counters, self.device)
         try:
-            graph.load(state)
-            prog.drive(graph.state, graph.run, self.stats)
+            return graph.solve(self.program, self.stats, z0, zl, zu, cl, cu)
         except BaseException:
             del self.graphs[key]
             raise
-        # the epilogue reads the persistent state, which the next call overwrites
-        return IPMResult(*(x.clone() for x in prog.epilogue(graph.state)))
 
     def _gather(self, x):
         # bool tensors travel as uint8

@@ -41,6 +41,7 @@ def continuation(
     for v in values:
         docp = transcribe(make_ocp(v), grid_size=grid_size, scheme=scheme, device=device, dtype=dtype)
         sol = solve_docp(docp, init=guess, options=options)
+        docp.release_solvers()
         if display:
             print(f"continuation {v}: {sol}")
         sols.append(sol)
@@ -78,6 +79,7 @@ def grid_continuation(
         docp = transcribe(ocp, grid_size=int(n), scheme=scheme, device=device, dtype=dtype)
         opts = options if (k == 0 or warm_options is None) else warm_options
         sol = solve_docp(docp, init=guess, options=opts)
+        docp.release_solvers()
         if display:
             print(f"grid_continuation N={n}: {sol}")
         if k < len(grids) - 1 and not bool(sol.successful):

@@ -25,9 +25,13 @@ here `ipm_solve` is one instance with Python control flow: every branch reads
 its condition back from the device (`.item()`), and the arithmetic follows
 the JAX package step for step so that a solve lands on the same iterates.
 `ipm_solve_batched` is the counterpart of `jax.vmap(ipm_solve)`: B instances
-in one masked loop, each on the iterates `ipm_solve` gives it alone. Its
-iteration is ten segments between the host's reads (`batched_ipm`), which
-`parallel/batch.py` replays as CUDA graphs on a card.
+in one masked loop, each on the iterates `ipm_solve` gives it alone: bit for
+bit under the "cr" and "dense" solves in f64, to rounding where a reduction
+runs in another order under vmap (the structured scan; the f64 refinement
+residual's einsums). Its iteration is ten segments between the host's reads
+(`batched_ipm`), which `solver/graph.py` replays as CUDA graphs on a card:
+for `BatchSolver`, and at B=1 for the compiled unbatched solve
+(`solver/interface.py::DOCPSolver`).
 Derivatives come from `torch.func` (grad, vjp, jvp, vmap).
 """
 
@@ -246,15 +250,24 @@ def ipm_solve(
     cu,
     options: IPMOptions = IPMOptions(),
     kkt=None,
+    return_history: bool = False,
     *,
     device,
     dtype: torch.dtype = torch.float64,
-) -> IPMResult:
+):
     """Solve the NLP on `device` in `dtype`.
 
     `kkt` is a KKT operator (see solver/kkt.py) supplying derivative assembly
     and the condensed-system solve; defaults to DenseKKT. Pass a StructuredKKT
-    to solve the block-tridiagonal + arrowhead collocation system in O(N)."""
+    to solve the block-tridiagonal + arrowhead collocation system in O(N).
+
+    return_history=True returns (result, history), as the JAX package's
+    does: history is six tensors of length max_iter on `device` (the
+    iteration count, mu, the KKT error, the filter's next slot, the last
+    primal regularization and the scaled objective f(z) after each
+    iteration; the rows after the last iteration repeat its values, as the
+    JAX package's masked scan does), None at max_iter == 0. The rows are
+    written on the device as the solve goes, with no read back."""
     opts = options
     nz, nc = spec.nz, spec.nc
 
@@ -831,9 +844,26 @@ def ipm_solve(
         soft_fails=0,
     )
 
+    history = None
+    if opts.max_iter > 0 and return_history:
+        history = tuple(
+            torch.empty((opts.max_iter,), dtype=dt, device=device)
+            for dt in (torch.long, dtype, dtype, torch.long, dtype, dtype)
+        )
+
+    def record(row, cr):
+        # row `row` and every later one: those after the last iteration keep
+        # its values
+        for buf, value in zip(history, (cr.it, cr.mu, cr.kkt_err, cr.filt_n, cr.delta_w_last, f(cr.z))):
+            buf[row:] = value
+
     if opts.max_iter > 0:
+        if history is not None:
+            record(0, carry)
         while (not carry.done) and carry.it < opts.max_iter:
             carry = step(carry)
+            if history is not None:
+                record(carry.it - 1, carry)
     final = carry
 
     viol_final = _amax(torch.abs(primal_residual(final.z, final.s) / scale_c), 0.0)
@@ -852,7 +882,7 @@ def ipm_solve(
 
     # unscale duals back to the user's problem: the scaled problem is
     # min s_f f s.t. s_c c, so lam_user = lam * s_c / s_f, bound duals / s_f
-    return IPMResult(
+    result = IPMResult(
         z=z_out,
         lam=final.lam * scale_c / scale_f,
         zL=final.wL / scale_f,
@@ -867,6 +897,7 @@ def ipm_solve(
         status=status,
         successful=status in (0, 4),
     )
+    return (result, history) if return_history else result
 
 
 # ----------------------------------------------------------------------------
@@ -1002,7 +1033,7 @@ def batched_ipm(
     The set-up's flag `more` opens the outer loop. The state is all that
     passes between segments, so the same loop runs them eagerly
     (`ipm_solve_batched`) or as replayed CUDA graphs whose outputs are
-    copied into persistent tensors (parallel/batch.py::BatchGraph), and
+    copied into persistent tensors (solver/graph.py::BatchGraph), and
     both make the same KKT solves and land on the same iterates bit for
     bit. The segments read no host data and no device value back, so each
     can be captured. Everything but the batch size B is fixed here."""
@@ -1679,8 +1710,12 @@ def ipm_solve_batched(
     field has a leading batch axis (iterations, status and successful are
     (B,) tensors).
 
-    Each instance follows exactly the iterates `ipm_solve` gives it alone:
-    its own scaling, barrier parameter, regularization, filter and counters.
+    Each instance follows the iterates `ipm_solve` gives it alone, with its
+    own scaling, barrier parameter, regularization, filter and counters: bit
+    for bit under the "cr" and "dense" solves in f64 (also with an f32 block
+    solve, refinement and Ruiz scaling, until a refinement residual
+    differs), to rounding under the structured scan and in the f64
+    refinement residual, whose reductions run in another order under vmap.
     A loop runs another trip while ANY instance still needs one; instances
     that finished, or that are outside a branch, keep their values
     (`torch.where`), as under `jax.vmap` of the JAX solver. Derivatives and

@@ -110,7 +110,10 @@ class DenseKKT:
             dim=0,
         )
         rhs = -torch.cat([rz, rp])
-        sol = torch.linalg.solve(KKT, rhs)
+        # LU without the `info` check: an exactly singular system gives
+        # non-finite entries, as the JAX function's does, which the IPM's
+        # finiteness test rejects, and nothing waits for the device
+        sol = torch.linalg.solve_ex(KKT, rhs)[0]
         return sol[: self.nz], sol[self.nz :]
 
     def diag_scale(self, data):

@@ -185,6 +185,16 @@ class DOCP:
         """x as a tensor on this DOCP's device, in its dtype."""
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
 
+    def release_solvers(self):
+        """Drop the solvers that `solve_docp` cached on this DOCP (one per
+        options), with what they hold: on a CUDA device, their segment
+        graphs and the graphs' memory pool. A solver refers to its DOCP, so
+        until this is called the two are freed only by Python's cycle
+        collector. `ct.solve` and the continuations call it on the DOCPs
+        they make; a caller of `solve_docp` calls it when done with the
+        DOCP. A later `solve_docp` builds (and on a card captures) anew."""
+        self.__dict__.pop("_solver_cache", None)
+
     # ------------------------------------------------------------------
     # time grid
     # ------------------------------------------------------------------

@@ -291,6 +291,52 @@ def check_batch_solver_matches_jax(case, **options):
         assert n(getattr(rt, field)).shape[0] == BATCH, field
 
 
+# ---- a tiny NLP whose first dense KKT system is exactly singular
+# (tests/test_torch_kkt_singular.py, tests/test_torch_ipm_history.py) ----
+
+
+def singular_nlp(xp):
+    """min (a - 1)^2 + (b - 2)^2 s.t. a + b = 1, with a third variable in
+    neither f nor c and unbounded: its KKT row is zero until the IPM
+    regularizes. `xp` is `jax.numpy` or `torch`; returns (f, c, bounds
+    (zl, zu, cl, cu), z0) with numpy bounds and guess. Optimum a=0, b=1,
+    f=2."""
+    inf = np.inf
+    zl = np.full(3, -inf)
+
+    def f(z):
+        return (z[0] - 1.0) ** 2 + (z[1] - 2.0) ** 2
+
+    def c(z):
+        return xp.stack([z[0] + z[1]])
+
+    return f, c, (zl, -zl, np.array([1.0]), np.array([1.0])), np.array([0.3, 0.2, 0.5])
+
+
+def solve_both(f_c_bounds_z0, jax_kkt, torch_kkt, **options):
+    """The same NLP through the JAX `ipm_solve` (jitted, return_history) and
+    the port's (eager, return_history) on the CPU: (jax result, jax history,
+    port result, port history). `f_c_bounds_z0` maps an array module to
+    (f, c, (zl, zu, cl, cu), z0), as `singular_nlp` does."""
+    import jax
+    import jax.numpy as jnp
+
+    from ctdirect_tpu.solver.ipm import IPMOptions as OptsJ
+    from ctdirect_tpu.solver.ipm import ipm_solve as ipm_j
+    from ctdirect_tpu.solver.ipm import make_spec as spec_j
+    from ctdirect_tpu_torch.solver.ipm import IPMOptions as OptsT
+    from ctdirect_tpu_torch.solver.ipm import ipm_solve as ipm_t
+    from ctdirect_tpu_torch.solver.ipm import make_spec as spec_t
+
+    fj, cj, bounds, z0 = f_c_bounds_z0(jnp)
+    ft, ctt, _, _ = f_c_bounds_z0(torch)
+    rj, hj = jax.jit(lambda z: ipm_j(fj, cj, spec_j(*bounds), z, *bounds, options=OptsJ(**options), kkt=jax_kkt,
+                                     return_history=True))(jnp.asarray(z0))
+    rt, ht = ipm_t(ft, ctt, spec_t(*bounds), z0, *bounds, options=OptsT(**options), kkt=torch_kkt,
+                   return_history=True, device="cpu")
+    return rj, hj, rt, ht
+
+
 # ---- sharded paths in gloo worlds (tests/test_torch_time_shard.py,
 # tests/test_torch_parallel_mesh.py) ----
 # The worlds are spawned processes (ctdirect_tpu_torch.parallel.spmd.launch):
