@@ -66,7 +66,12 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      same status and the objective within 1e-8 (iterations side by side);
      then a replayed solve under torch.profiler: device busy and idle share,
      and the CR kernel's CUDA launches, which must be the block solves x
-     (3 + 3 log2 256) = 27;
+     (3 + 3 log2 256) = 27.
+     Each of these profiled checks (phases 6, 9, 10 and 14f) goes through
+     utils/profiling.py's kernel_events: it reports the activity records
+     CUPTI dropped (kineto's warnings, printed with KINETO_LOG_LEVEL=2,
+     which this script sets) and takes a profile that dropped records again,
+     3 profiles at most; a count that differs with nothing dropped fails;
  11. the 10-problem suite (benchmarks/sweep.py's EASY_SET) at N=250 trapeze
      under the sweep's options (f32 block solve, refinement, Ruiz, its
      per-problem overrides; jackson with one more refinement sweep), each a
@@ -113,7 +118,25 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         objective within 1e-8 of phase 10's f64 objective;
      e. ctdirect_tpu_torch.entry.dryrun_multichip(4, cuda, gloo): all five
         legs; on every rank the batch-sharded solves of legs 1 and 4 run as
-        the rank's own segment graphs (the all_gather outside them).
+        the rank's own segment graphs (the all_gather outside them);
+     f. the compiled time-sharded paths in a one-rank NCCL world (NCCL puts
+        one rank on each card; ctdirect_tpu_torch.shard_timing's run and
+        checks at time=1): (i) the distributed CR on the tick's chain
+        (P=128, bs=5, wb=7, B=512, f64) replayed as a CUDA graph, bitwise
+        its eager form and within 1e-10 x scale of the kernel; (ii) the 2-D
+        tick over batch=1 x time=1, phase 5's f64 configuration from its
+        warm state over its x0s: one capture, the replay within GRAPH_TOL
+        of the eager tick at every tick, max KKT < 1e-10, u0 within 1e-10
+        of phase 5's unsharded tick; (iii) Goddard config 2 through
+        DOCPSolver(kkt=TimeShardedKKT) over time=1, compiled (segment
+        graphs) against the eager ipm_solve(kkt=TimeShardedKKT): status 0
+        both, objective within 1e-8, and within 1e-8 of phase 10's. Each
+        prints its replayed and eager times and the NCCL messages per
+        replay, which must be nonzero (none staged); each path's kernel
+        launches (the root solve, P=1) are counted around its replays, and
+        one more replay of (i) and (ii) runs under torch.profiler, which
+        must see those launches x the plan (3 CUDA launches each; (iii)'s
+        segment graphs are phase 10's kind, whose launches it profiles).
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
 (P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
@@ -149,11 +172,17 @@ import contextlib
 import ctypes
 import hashlib
 import json
+import os
 import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+# kineto (torch.profiler) prints its warnings, among them CUPTI's dropped
+# activity records that the profiled checks report, only at this level or
+# below; read when its profiler first starts
+os.environ.setdefault("KINETO_LOG_LEVEL", "2")
 
 import numpy as np
 import torch
@@ -203,8 +232,6 @@ LIBRARY_MAX_B = 16
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
 MAX_STACK_BYTES = 1024
-# the CR kernel's CUDA kernels, as the profiler names them (pack and unpack are transpose_kernel)
-CR_KERNELS = re.compile(r"\b(up_odd|up_even|root_solve|down|transpose_kernel)<")
 # phase 12, cut from grids (50, 200) to (50, 100) to keep the script near half
 # its time limit (PERF.md). Its final stage is held against the JAX
 # package's grid_continuation with the same grids and options on the CPU
@@ -458,6 +485,8 @@ def launch_split(kernel, chain, calls=5):
     """Device ms of one solve by CUDA kernel (torch.profiler over `calls` solves)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
@@ -707,43 +736,41 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
                 u0=u0, ctrl=ctrl, make_ctrl=make_ctrl, states=replay["states"], warm=warm, both=both)
 
 
-def profiled(tick, states, xs, ticks):
-    """torch.profiler over `ticks` ticks; returns (profile, wall ms per tick)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+def ticking(tick, states, xs, ticks, want=None):
+    """A call that runs `ticks` ticks of `tick` from `states` over xs and
+    returns `want` (profiling.kernel_events' planned count)."""
+    def run():
+        s = states
         for x0 in xs[:ticks]:
-            states, *_ = tick(states, x0)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / ticks * 1e3
-    return prof, wall
+            s, *_ = tick(s, x0)
+        return want
+    return run
 
 
-def profiled_solve(fn):
-    """fn() under torch.profiler: its wall s, device busy s, CR kernel s,
-    the CR kernel's CUDA launches seen and all kernel launches seen."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled_solve(solve, solves, per):
+    """A replayed solve under torch.profiler (profiling.kernel_events, which
+    raises unless the profiler sees the CR kernel's planned CUDA launches:
+    the block solves that `solves()` counts in the call x `per`): its wall
+    s, device busy s, CR kernel s, the CR kernel's CUDA launches seen, all
+    kernel launches seen, and the profiler's dropped records and profiles."""
+    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS, device_kernels, kernel_events
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    dev = device_kernels(prof)
+    def run():
+        n0 = solves()
+        solve()
+        return (solves() - n0) * per
+
+    rec = kernel_events(run)
+    dev = device_kernels(rec["prof"])
     cr = [e for e in dev if CR_KERNELS.search(e.key)]
-    return dict(wall=wall, busy=sum(e.self_device_time_total for e in dev) / 1e6,
-                cr=sum(e.self_device_time_total for e in cr) / 1e6, cr_launches=sum(e.count for e in cr),
-                launches=sum(e.count for e in dev))
+    return dict(wall=rec["wall"], busy=sum(e.self_device_time_total for e in dev) / 1e6,
+                cr=sum(e.self_device_time_total for e in cr) / 1e6, cr_launches=rec["seen"],
+                launches=sum(e.count for e in dev), dropped=rec["dropped"], tries=rec["tries"])
 
 
-def device_kernels(prof):
-    """The profile's CUDA kernels (not the device-side spans of profiler
-    ranges, which stage_split opens)."""
-    return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0
-            and not e.key.startswith("stage:")]
+def seen_note(rec):
+    """What the profiler lost on the way (profiling.kernel_events)."""
+    return f"; CUPTI dropped {rec['dropped']} activity records over {rec['tries']} profiles"
 
 
 def stage_split(make_ctrl, states, xs, ticks):
@@ -763,6 +790,7 @@ def stage_split(make_ctrl, states, xs, ticks):
 
     from ctdirect_tpu_torch.parallel import mpc
     from ctdirect_tpu_torch.solver import resolve
+    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS, device_kernels, device_profile
 
     def ranged(name, fn):
         def wrapped(*args, **kw):
@@ -782,7 +810,7 @@ def stage_split(make_ctrl, states, xs, ticks):
         ctrl = make_ctrl()
         for name in ("prepare", "solve", "_assemble", "_block_solve"):
             setattr(ctrl.kkt, name, ranged(name.lstrip("_"), getattr(ctrl.kkt, name)))
-        prof, _ = profiled(ctrl.eager, states, xs, ticks)
+        _, prof, _, _ = device_profile(ticking(ctrl.eager, states, xs, ticks))
     finally:
         resolve.grad, resolve.vjp, mpc.shift_state = grad, vjp, shift
     events = prof.events()
@@ -810,31 +838,36 @@ def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
     """Device busy/idle share of a few eager and replayed ticks, the CR
     kernel's part, and its CUDA launches per replayed tick seen by the
     profiler (the witness that the graph runs the kernel, apart from the
-    wrapper's counts): ITERS x the plan's launches of one solve. Then the
-    stage split of the eager tick (stage_split)."""
+    wrapper's counts): ITERS x the plan's launches of one solve
+    (profiling.kernel_events, which raises otherwise). Then the stage split
+    of the eager tick (stage_split)."""
+    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS, device_kernels, kernel_events
+
     P = P or chain_blocks(N)
     want = ITERS * grid_per_solve(P)
     out = {}
     for tag, tick in (("eager", ctrl.eager), ("replayed", ctrl)):
-        prof, wall = profiled(tick, states, xs, ticks)
+        try:
+            rec = kernel_events(ticking(tick, states, xs, ticks, want * ticks))
+        except AssertionError as e:
+            raise AssertionError(f"{name} {tag}, CR kernel over {ticks} ticks: {e}") from None
+        prof, wall = rec["prof"], rec["wall"] / ticks * 1e3
         dev = device_kernels(prof)
         busy = sum(e.self_device_time_total for e in dev) / ticks / 1e3
         is_cr = CR_KERNELS.search
         cr = sum(e.self_device_time_total for e in dev if is_cr(e.key)) / ticks / 1e3
-        cr_launches = sum(e.count for e in dev if is_cr(e.key)) / ticks
+        cr_launches = rec["seen"] / ticks
         launches = sum(e.count for e in dev) / ticks
         if not busy > 0:
             seen = sorted({e.key for e in prof.key_averages()})[:40]
             raise AssertionError(f"{name} {tag}: the profiler saw no device time; it saw {seen}")
-        if cr_launches != want:
-            raise AssertionError(f"{name} {tag}: {cr_launches} CR kernel events per tick in the profile, "
-                                 f"planned {want}")
-        out[tag] = dict(wall=wall, busy=busy, cr=cr, cr_launches=cr_launches, launches=launches)
+        out[tag] = dict(wall=wall, busy=busy, cr=cr, cr_launches=cr_launches, launches=launches,
+                        dropped=rec["dropped"])
         log(f"device split, {name} {tag} ({ticks} ticks under torch.profiler): wall {wall:.3f} ms/tick, "
             f"device busy {busy:.3f} ms/tick ({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%), "
             f"CR kernel {cr:.3f} ms/tick ({100 * cr / busy:.1f}% of busy, {cr_launches:.0f} CUDA launches of it "
             f"seen per tick, planned {want}), other kernels {busy - cr:.3f} ms/tick, {launches:.0f} kernel "
-            f"launches/tick")
+            f"launches/tick{seen_note(rec)}")
     split = stage_split(make_ctrl, states, xs, ticks)
     total = sum(split.values())
     log(f"  stage split, {name} (eager tick, device ms per tick, {ticks} ticks): "
@@ -1006,17 +1039,17 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
 
     # the device split of one more graphed solve
     solver.stats = BatchStats()
-    split = profiled_solve(lambda: solver(z0, cl, cu))
+    try:
+        split = profiled_solve(lambda: solver(z0, cl, cu), lambda: solver.stats.kkt_solves, per)
+    except AssertionError as e:
+        raise AssertionError(f"batch solve, CR kernel: {e}") from None
     wall, busy, cr, cr_launches = split["wall"], split["busy"], split["cr"], split["cr_launches"]
-    want = solver.stats.kkt_solves * per
-    if cr_launches != want:
-        raise AssertionError(f"batch solve: {cr_launches} CR kernel events in the profile, planned {want}")
     replay = runs["graphed replay"]["wall"]
     log(f"  device split, graphed solve under torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%; idle {100 * (1 - busy / replay):.1f}% of "
         f"the unprofiled replay's {replay:.3f} s), CR kernel {cr:.3f} s ({100 * cr / busy:.1f}% of busy, "
-        f"{cr_launches} CUDA launches of it seen = {solver.stats.kkt_solves} solves x {per}), {split['launches']} "
-        f"kernel launches")
+        f"{cr_launches} CUDA launches of it seen = {cr_launches // per} solves x {per}), {split['launches']} "
+        f"kernel launches{seen_note(split)}")
 
     run = _get_solver(docp, opts)
     for b in CP_CHECK:
@@ -1136,17 +1169,16 @@ def phase_goddard(ct, get_problem, kernel, kres):
             f"{eager.iterations} eager, objective rel diff {rel:.2e} (bound 1e-8); speed-up of the replay over the "
             f"eager solve {row['eager_s'] / row['replayed call']['wall']:.2f}x")
 
-        blocks0 = run.kkt.block_solves
-        split = profiled_solve(lambda: run(*args))
-        want = (run.kkt.block_solves - blocks0) * per
-        if split["cr_launches"] != want:
-            raise AssertionError(f"goddard {tag}: {split['cr_launches']} CR kernel events in the profile of a "
-                                 f"replayed solve, planned {want} (block solves x {per})")
+        try:
+            split = profiled_solve(lambda: run(*args), lambda: run.kkt.block_solves, per)
+        except AssertionError as e:
+            raise AssertionError(f"goddard {tag}, a replayed solve's CR kernel (block solves x {per}): {e}") from None
+        want = split["cr_launches"]
         log(f"  device split, replayed solve under torch.profiler: wall {split['wall']:.3f} s, device busy "
             f"{split['busy']:.3f} s ({100 * split['busy'] / split['wall']:.1f}%, idle "
             f"{100 * (1 - split['busy'] / split['wall']):.1f}%), CR kernel {split['cr']:.3f} s "
             f"({100 * split['cr'] / split['busy']:.1f}% of busy, {split['cr_launches']} CUDA launches of it seen = "
-            f"{want // per} block solves x {per}), {split['launches']} kernel launches")
+            f"{want // per} block solves x {per}), {split['launches']} kernel launches{seen_note(split)}")
         row["split"] = split
         sols[tag], rows[tag] = sol, row
     dobj = abs(sols["f32"].objective - sols["f64"].objective) / abs(sols["f64"].objective)
@@ -1285,6 +1317,8 @@ def ci_solve(ct, prob, cfg, opts, device="cuda"):
 
 def trace_cr_events(path):
     """CUDA kernel events of the CR kernel in a Chrome trace."""
+    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS
+
     events = json.loads(Path(path).read_text())["traceEvents"]
     return [e for e in events if e.get("cat") == "kernel" and CR_KERNELS.search(e.get("name", ""))]
 
@@ -1524,8 +1558,9 @@ def shard_rank(world, payload):
 
 def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
     """Phase 14: the sharded paths in one gloo world of SHARD_WORLD ranks on
-    the card (14a-14d, shard_rank), then the entry's dry run (14e). Returns
-    the batch-sharded tick's kernel path record."""
+    the card (14a-14d, shard_rank), then the entry's dry run (14e), then the
+    compiled paths over NCCL (14f). Returns the kernel path records of the
+    batch-sharded tick and of 14f."""
     from ctdirect_tpu_torch.entry import dryrun_multichip
     from ctdirect_tpu_torch.parallel import broadcast_state
     from ctdirect_tpu_torch.parallel.spmd import launch
@@ -1630,7 +1665,43 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
         raise AssertionError(f"dryrun_multichip: legs 1 and 4 not graphed on every rank: {captures}")
     log(f"dryrun_multichip({SHARD_WORLD}, cuda, gloo): all five legs, {time.perf_counter() - t0:.1f} s; segment "
         f"graphs per rank after legs 1 and 4: {captures}")
-    return path
+    return [path, *phase_nccl_graphs(main[torch.float64]["warm"], xs[:n_ticks], refs[torch.float64],
+                                     gd_f64_objective)]
+
+
+def phase_nccl_graphs(warm, xs, ref_u0, gd_f64_objective):
+    """Phase 14f: the compiled time-sharded paths in a one-rank NCCL world
+    (shard_timing's run and checks, a profiled replay of the tick and of
+    the distributed CR among them, then this phase's own). Returns the paths' kernel records."""
+    from ctdirect_tpu_torch import shard_timing
+
+    cfg = dict(tick=dict(shard_timing.TICK, B=B, N=N, iters=ITERS, warmup=SHARD_WARMUP, timed=len(xs) - SHARD_WARMUP,
+                         time=1, x0s=[x.cpu().numpy() for x in xs],
+                         warm={f: getattr(warm, f).cpu().numpy() for f in warm._fields}),
+               chains={"tick": SHARD_CHAINS["tick"]}, chain_sizes=[1], goddard_sizes=[1])
+    t0 = time.perf_counter()
+    (r,) = shard_timing.run(1, cfg, timeout=SHARD_TIMEOUT)
+    log(f"compiled sharded paths: a one-rank NCCL world, {time.perf_counter() - t0:.1f} s")
+    shard_timing.report([r], cfg, log=lambda m: log("  " + m))
+    t, c, g = r["tick"], r["chains"][0], r["goddard"][0]
+    du = float(np.abs(t["u0"] - ref_u0).max())
+    rel = abs(g["objective"][1] - gd_f64_objective) / abs(gd_f64_objective)
+    checks = {
+        "(i) the distributed CR replay bitwise its eager form": c["bitwise"],
+        "(ii) u0 within 1e-10 of phase 5's unsharded f64 tick": du <= 1e-10,
+        "(iii) the compiled Goddard within 1e-8 of phase 10's f64 objective": rel <= 1e-8,
+        "NCCL messages inside every graph": min(t["replay"]["messages"], c["messages"], g["messages"]) > 0,
+    }
+    failed = [what for what, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 14f: {failed}; u0 diff {du:.3e}, objective rel diff {rel:.3e}")
+    log(f"compiled sharded paths: the 2-D tick's u0 within {du:.3e} of phase 5's unsharded tick; Goddard within "
+        f"{rel:.3e} of phase 10's objective; NCCL messages per replay: tick run {t['replay']['messages']}, "
+        f"distributed CR {c['messages']}, Goddard {g['messages']}")
+    root = grid_per_solve(1)
+    return [path_record(name, torch.float64, rec["launches"], rec["grid_launches"], rec["launches"] * root)
+            for name, rec in (("mpc_tick_2d_nccl_graph", t["replay"]), ("dcr_nccl_graph", c),
+                              ("goddard_time_sharded_nccl_graph", g))]
 
 
 def kernel_name(mangled):
@@ -1755,7 +1826,7 @@ def main():
     phase_done("phase 14")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
-             *goddard["paths"], suite, grid, fixture_ci, sharded]
+             *goddard["paths"], suite, grid, fixture_ci, *sharded]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))

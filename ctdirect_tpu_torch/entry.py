@@ -9,11 +9,16 @@ dryrun_multichip(n_devices, device=..., backend=...) spawns a world of
 n_devices ranks (parallel/spmd.py) and runs five sharded legs on it:
   1. a batch-sharded BatchSolver (data-parallel whole-IPM solves);
   2. the full IPM with the time-sharded KKT operator (distributed cyclic
-     reduction: halo sends and receives, a border all_reduce, an all_gather);
+     reduction: halo sends and receives, a border all_reduce, an all_gather)
+     through `DOCPSolver(..., kkt=TimeShardedKKT)`, held to its eager form
+     (`ipm_solve(kkt=TimeShardedKKT)`: same status, objective to 1e-8);
   3. the RTI MPC tick with the batch axis sharded and kkt_algorithm="cr";
   4. a batch-sharded BatchSolver with per-instance variable boxes (zl/zu);
   5. the 2-D (batch = D/2, time = 2) MPC tick: instances over the batch
-     axis, each instance's KKT chain over the time axis.
+     axis, each instance's KKT chain over the time axis, held to the eager
+     tick (`MPCController.eager`) within 1e-13.
+Over NCCL on cards, legs 2 and 5 are compiled (CUDA graphs with their
+messages inside); over gloo they run eagerly, and leg 2 solves once.
 It prints one line per leg and returns the legs' results.
 
     python -m ctdirect_tpu_torch.entry --nproc 4 --device cpu
@@ -30,6 +35,10 @@ import torch
 
 # the legs' tick KKT limit (PERF.md section 2)
 TICK_KKT_MAX = 1e-10
+# a compiled leg against its eager form: the tick's outputs (bitwise
+# expected), the time-sharded solve's objective (relative; PERF.md section 2)
+GRAPH_TOL = 1e-13
+SOLVE_RTOL = 1e-8
 
 
 def _flagship(grid_size=20, max_iter=8, *, device):
@@ -71,10 +80,16 @@ def _check(ok, what):
         raise AssertionError(what)
 
 
+def _form(leg, what):
+    """How a leg ran on rank 0: its graphs, or eagerly."""
+    return f"{leg['captures']} {what} on rank 0" if leg["graphed"] else "eager"
+
+
 def _dryrun_rank(world):
     """The five legs on one rank; returns this rank's numbers per leg."""
     from ctdirect_tpu_torch.parallel import BatchSolver, MPCController, TimeShardedKKT, broadcast_state
-    from ctdirect_tpu_torch.solver.ipm import IPMOptions, ipm_solve
+    from ctdirect_tpu_torch.solver.interface import DOCPSolver
+    from ctdirect_tpu_torch.solver.ipm import IPMOptions
 
     n, dev = world.size, world.device
     out = {}
@@ -90,17 +105,25 @@ def _dryrun_rank(world):
     out["batch"] = dict(status=res.status.cpu().numpy(), z=res.z.cpu().numpy(), graphed=solver.graphed,
                         captures=solver.captures)
 
-    # 2. time-parallel solve: the full IPM with the time-sharded KKT operator
+    # 2. time-parallel solve: the full IPM with the time-sharded KKT operator,
+    # compiled over NCCL, against its eager form
     mesh_t = world.mesh((n,), ("time",))
-    docp_t, spec_t, opts_t = _flagship(grid_size=4 * n, max_iter=3, device=dev)
+    docp_t, _, opts_t = _flagship(grid_size=4 * n, max_iter=3, device=dev)
     kkt = TimeShardedKKT(docp_t, mesh_t, axis="time")
-    res_t = ipm_solve(docp_t.nlp_objective, docp_t.constraints, spec_t, docp_t.initial_guess(None),
-                      docp_t._z_lb, docp_t._z_ub, docp_t._c_lb, docp_t._c_ub, options=opts_t, kkt=kkt,
-                      device=dev, dtype=docp_t.dtype)
-    kkt_t = float(res_t.kkt_error)
+    run = DOCPSolver(docp_t, opts_t, kkt=kkt)
+    args = (docp_t.initial_guess(None), docp_t._z_lb, docp_t._z_ub, docp_t._c_lb, docp_t._c_ub)
+    ref_t, _ = run.eager(*args)
+    res_t, drel = ref_t, 0.0  # off NCCL, run(...) is run.eager(...)
+    if run.graphed:
+        res_t, _ = run(*args)
+        drel = abs(float(res_t.objective) - float(ref_t.objective)) / max(1.0, abs(float(ref_t.objective)))
+        _check(res_t.status == ref_t.status and drel <= SOLVE_RTOL,
+               f"leg 2: status {res_t.status} vs eager {ref_t.status}, objective rel diff {drel:.3e}")
+    kkt_t, obj_t = float(res_t.kkt_error), float(res_t.objective)
     _check(np.isfinite(kkt_t) and bool(torch.isfinite(res_t.z).all()), "leg 2: not finite")
-    out["time"] = dict(kkt=kkt_t, objective=float(res_t.objective), block_solves=kkt.block_solves,
-                       messages=kkt.axis.messages, staged=kkt.axis.staged_messages)
+    out["time"] = dict(kkt=kkt_t, objective=obj_t, block_solves=kkt.block_solves, messages=kkt.axis.messages,
+                       staged=kkt.axis.staged_messages, graphed=run.graphed, captures=run.captures,
+                       eager_drel=drel)
 
     # 3. batch-sharded RTI MPC tick: this rank's rows of the global batch
     ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=2, kkt_algorithm="cr", mesh=mesh_b,
@@ -134,11 +157,16 @@ def _dryrun_rank(world):
                               device=dev)
         rows2 = 2  # the global batch 2 * bt over bt batch shards
         x02 = docp.tensor(np.tile([0.02, -0.01], (rows2, 1)))
-        _, u02, kkt2, _ = ctrl2(broadcast_state(warm, rows2), x02)
+        states2 = broadcast_state(warm, rows2)
+        _, u02, kkt2, viol2 = ctrl2(states2, x02)
+        _, u02e, kkt2e, viol2e = ctrl2.eager(states2, x02)
         k5 = float(kkt2.max())
+        d5 = max(float((a - b).abs().max()) for a, b in ((u02, u02e), (kkt2, kkt2e), (viol2, viol2e)))
         _check(tuple(u02.shape) == (rows2, 1) and k5 < TICK_KKT_MAX, f"leg 5: u0 {tuple(u02.shape)}, kkt {k5:.3e}")
+        _check(d5 <= GRAPH_TOL, f"leg 5: the tick and its eager form differ by {d5:.3e}")
         out["tick_2d"] = dict(kkt=k5, u0=u02.cpu().numpy(), batch_shard=ctrl2.axis.rank,
-                              messages=ctrl2.kkt.axis.messages, staged=ctrl2.kkt.axis.staged_messages)
+                              messages=ctrl2.kkt.axis.messages, staged=ctrl2.kkt.axis.staged_messages,
+                              graphed=ctrl2.graphed, captures=ctrl2.captures, eager_diff=d5)
     return out
 
 
@@ -154,14 +182,16 @@ def dryrun_multichip(n_devices: int, *, device, backend: str, timeout: float = 6
     tag = f"dryrun_multichip({n_devices}, {device}, {backend})"
     graphs = f"{r0['batch']['captures']} segment graphs on rank 0" if r0["batch"]["graphed"] else "eager"
     print(f"{tag}: batch-sharded solve OK ({graphs}); statuses={r0['batch']['status'][:4]}...")
-    print(f"{tag}: time-sharded distributed-CR solve OK; kkt_error={r0['time']['kkt']:.2e} "
+    print(f"{tag}: time-sharded distributed-CR solve OK ({_form(r0['time'], 'segment graphs')}); "
+          f"kkt_error={r0['time']['kkt']:.2e}, objective vs eager {r0['time']['eager_drel']:.1e} "
           f"({r0['time']['messages']} messages on rank 0, {r0['time']['staged']} staged through the host)")
     print(f"{tag}: batch-sharded RTI tick OK; max kkt={max(r['tick']['kkt'] for r in ranks):.2e}")
     print(f"{tag}: batched-zl/zu sharded solve OK ({r0['boxes']['captures']} segment graphs on rank 0 after "
           f"it); statuses={r0['boxes']['status'][:4]}...")
     if "tick_2d" in r0:
-        print(f"{tag}: 2-D (batch={n_devices // 2}, time=2) mesh MPC tick OK; "
-              f"max kkt={max(r['tick_2d']['kkt'] for r in ranks):.2e}")
+        print(f"{tag}: 2-D (batch={n_devices // 2}, time=2) mesh MPC tick OK ({_form(r0['tick_2d'], 'tick graphs')}); "
+              f"max kkt={max(r['tick_2d']['kkt'] for r in ranks):.2e}, vs eager "
+              f"{max(r['tick_2d']['eager_diff'] for r in ranks):.1e}")
     return ranks
 
 

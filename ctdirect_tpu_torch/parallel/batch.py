@@ -33,7 +33,7 @@ from typing import Optional
 import torch
 
 from ctdirect_tpu_torch.parallel.time_shard import ShardAxis
-from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters
+from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters, kkt_capturable
 from ctdirect_tpu_torch.solver.interface import make_kkt
 from ctdirect_tpu_torch.solver.ipm import BatchStats, IPMOptions, IPMResult, batched_ipm, make_spec
 from ctdirect_tpu_torch.transcription.docp import DOCP
@@ -57,7 +57,8 @@ class BatchSolver:
 
     How a solve runs (`__call__`):
     - on the CPU, eagerly, as the tests run it;
-    - on a CUDA device, as replays of CUDA graphs (`BatchGraph`), one per
+    - on a CUDA device (with a KKT operator whose messages, if any, go over
+      NCCL), as replays of CUDA graphs (`BatchGraph`), one per
       segment, captured at each segment's first use for each batch size and
       kept in `graphs` (batch size -> BatchGraph); `captures` counts the
       segment graphs held. What a call returns stays valid after the next
@@ -91,7 +92,7 @@ class BatchSolver:
         self.program = batched_ipm(docp.nlp_objective, docp.constraints, self.spec, options, self.kkt,
                                    device=device, dtype=dtype)
         self.stats = BatchStats()
-        self.graphed = device.type == "cuda"
+        self.graphed = device.type == "cuda" and kkt_capturable(self.kkt)
         self.graphs = {}
         self._counters = graph_counters(self.kkt)
 

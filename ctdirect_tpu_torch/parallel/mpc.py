@@ -10,11 +10,12 @@ batched CR (the hand-written CUDA kernel on the card) once for the whole
 batch through the dispatch in solver/lanes.py.
 
 On a CUDA device the tick runs as the JAX package runs `jax.jit(vtick)`: one
-compiled program per input signature. Here that is a CUDA graph (`TickGraph`)
-captured at the first call of each signature and replayed after, so a tick
-is a few input copies, one graph launch and a few output copies instead of
-thousands of launches issued from Python. The arithmetic is the eager tick's;
-`MPCController.eager` runs that un-graphed tick on any device.
+compiled program per input signature. Here that is a CUDA graph
+(`solver/graph.py::CallGraph`) captured at the first call of each signature
+and replayed after, so a tick is a few input copies, one graph launch and a
+few output copies instead of thousands of launches issued from Python. The
+arithmetic is the eager tick's; `MPCController.eager` runs that un-graphed
+tick on any device.
 
 Sharded ticks (SPMD, one process per rank; parallel/spmd.py launches such
 worlds): with `mesh` and `batch_axis`, rank i of the batch axis holds and
@@ -22,11 +23,12 @@ ticks rows [i B/D, (i+1) B/D) of the global batch, with no collective on the
 hot path. With a `time_axis` too (the 2-D batch x time mesh), the state is
 replicated over the time axis: every rank of a time group ticks the same
 rows, and only the KKT block solve is distributed over that group
-(parallel/time_shard.py::InsideTimeShardKKT)."""
+(parallel/time_shard.py::InsideTimeShardKKT). Over NCCL (one card per
+rank) its halos, all_reduce and all_gathers are captured in the tick's
+graph as the JAX package's shard_map'd tick holds its collectives."""
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -34,7 +36,7 @@ import torch
 from torch.func import vmap
 
 from ctdirect_tpu_torch.parallel.time_shard import InsideTimeShardKKT, ShardAxis
-from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
+from ctdirect_tpu_torch.solver.graph import CallGraph, graph_counters, kkt_capturable, signature
 from ctdirect_tpu_torch.solver.ipm import IPMOptions, make_spec
 from ctdirect_tpu_torch.solver.resolve import (
     WarmState,
@@ -75,64 +77,6 @@ def shift_state(docp: DOCP, st: WarmState) -> WarmState:
     )
 
 
-def _signature(states: WarmState, x0) -> tuple:
-    """What a captured tick is specialised to: every input's shape (the batch
-    B among them), dtype and device."""
-    return tuple((tuple(a.shape), a.dtype, a.device) for a in (*states, x0))
-
-
-class TickGraph:
-    """One tick captured as a CUDA graph for one input signature.
-
-    Capture follows `torch.cuda.graph`'s protocol: the eager tick runs once on
-    a side stream first, so that the first-use work (the CR kernel's build and
-    load, lazily made tables, library handles) happens outside the capture;
-    the kernel launches of that warm-up are real and counted. The capture
-    itself launches nothing, so the plain-int counters the tick moves
-    (`counters`: (object, attribute) pairs) are put back after it, and each
-    replay adds what the capture added.
-
-    `replay` copies the caller's tensors into the graph's static inputs and
-    returns clones of its static outputs, which the next replay overwrites:
-    what a tick returns stays valid after the next one, as the JAX tick's
-    fresh arrays do. A capture or replay that fails raises."""
-
-    def __init__(self, tick, states: WarmState, x0, counters):
-        device = x0.device
-        self.inputs = (WarmState(*(a.clone() for a in states)), x0.clone())
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            tick(*self.inputs)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        before = [getattr(obj, name) for obj, name in counters]
-        self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.outputs = tick(*self.inputs)
-        finally:
-            self.counts = [(obj, name, getattr(obj, name) - b) for (obj, name), b in zip(counters, before)]
-            for (obj, name), b in zip(counters, before):
-                setattr(obj, name, b)
-        self.capture_s = time.perf_counter() - t0
-        # the graph's private memory pool (its intermediates and outputs)
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-
-    def replay(self, states: WarmState, x0):
-        st, xs = self.inputs
-        for dst, src in zip((*st, xs), (*states, x0)):
-            dst.copy_(src)
-        self.graph.replay()
-        for obj, name, added in self.counts:
-            setattr(obj, name, getattr(obj, name) + added)
-        new, u0, kkt, viol = self.outputs
-        return WarmState(*(a.clone() for a in new)), u0.clone(), kkt.clone(), viol.clone()
-
-
 class MPCController:
     """Batched MPC loop over one DOCP structure, on one device or on a rank
     of a mesh.
@@ -144,15 +88,17 @@ class MPCController:
 
     How a tick runs (`__call__`):
     - on the CPU, eagerly, as the tests run it;
-    - on a CUDA device, single-device or as a rank of a batch-only mesh, as a
-      replay of a CUDA graph (`TickGraph`), captured at the first call of each
-      input signature (B, dtypes, shapes) and kept in `graphs`; `captures`
-      counts the captures and `graphed` says whether ticks replay. The first
-      call of a signature runs one eager warm-up tick, captures, then
-      replays;
-    - with a `time_axis` (the 2-D batch x time mesh), eagerly on every device:
-      its KKT solve exchanges halos through `torch.distributed` inside the
-      tick, and the gloo messages are staged through host memory
+    - on a CUDA device, single-device, as a rank of a batch-only mesh, or
+      with a `time_axis` over NCCL (the 2-D batch x time mesh, one card per
+      rank), as a replay of a CUDA graph (`CallGraph`), captured at the first
+      call of each input signature (B, dtypes, shapes) and kept in `graphs`;
+      `captures` counts the captures and `graphed` says whether ticks
+      replay. The first call of a signature runs one eager warm-up tick
+      (which also makes the time axis's NCCL communicators), captures, then
+      replays. Every rank of a time group captures and replays the same
+      graph in the same order, so their collectives meet;
+    - with a `time_axis` over gloo (ranks sharing a card, or CPU ranks),
+      eagerly: gloo stages CUDA messages through host memory
       (parallel/time_shard.py), which a graph cannot capture. That is a
       deviation from the JAX package, whose 2-D tick is jitted as well.
 
@@ -245,13 +191,11 @@ class MPCController:
             return res.state, u0, res.kkt_error, res.constraints_violation
 
         self._tick = vmap(tick)
-        self.graphed = device.type == "cuda" and time_axis is None
+        self.graphed = device.type == "cuda" and kkt_capturable(self.kkt)
         self.graphs = {}
         self.captures = 0
         # the plain-int counters a tick moves (a replay adds what its capture added)
-        self._counters = [(cr_solve_batched, "launches"), (cr_solve_batched, "grid_launches")]
-        if isinstance(self.kkt, StructuredKKT):
-            self._counters.append((self.kkt, "block_solves"))
+        self._counters = graph_counters(self.kkt)
 
     def __call__(self, states: WarmState, x0_batch):
         """Advance all controllers one tick. states: batched WarmState;
@@ -259,12 +203,12 @@ class MPCController:
         (new_states, u0, kkt_err, viol), tensors of the caller's own."""
         if not self.graphed:
             return self._tick(states, x0_batch)
-        key = _signature(states, x0_batch)
+        key = signature((states, x0_batch))
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = TickGraph(self._tick, states, x0_batch, self._counters)
+            graph = self.graphs[key] = CallGraph(self._tick, (states, x0_batch), self._counters)
             self.captures += 1
-        return graph.replay(states, x0_batch)
+        return graph.replay((states, x0_batch))
 
     def eager(self, states: WarmState, x0_batch):
         """The tick run op by op, with no graph (same arguments and results

@@ -23,7 +23,16 @@ L = P / D.
 Transport (`ShardAxis`): a gloo group carries CPU tensors; an NCCL group
 CUDA tensors; a gloo group given CUDA tensors (several ranks sharing one
 card, which NCCL refuses) stages every message through the host and counts
-it in `staged_messages`. Anything else raises; nothing falls back."""
+it in `staged_messages`. Anything else raises; nothing falls back.
+
+Compiled form: over NCCL the distributed CR, the 2-D tick that calls it
+(parallel/mpc.py) and the time-sharded solve (`TimeShardedKKT` in
+solver/interface.py::DOCPSolver) run as CUDA graphs with their sends,
+receives, all_reduce and all_gathers captured inside, the counterpart of the
+JAX package's shard_map under jit. Every rank of an axis captures and
+replays the same graphs in the same order; the gathered blocks, the summed
+border terms and so the root are the same bytes on every rank, so ranks
+that read the same flags stay in lockstep. Over gloo the paths stay eager."""
 
 from __future__ import annotations
 
@@ -34,6 +43,8 @@ import torch
 import torch.distributed as dist
 
 from ctdirect_tpu_torch.parallel.spmd import check_backend
+from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
+from ctdirect_tpu_torch.solver.graph import KERNEL_COUNTERS, CallGraph, signature
 from ctdirect_tpu_torch.solver.lanes import (
     _add_shifted,
     _pad_pow2_lanes,
@@ -41,7 +52,6 @@ from ctdirect_tpu_torch.solver.lanes import (
     bmm_tn,
     bmv,
     bmv_tn,
-    cr_solve_lanes,
     gj_inverse_lanes,
     lane_solve,
 )
@@ -74,7 +84,8 @@ class ShardAxis:
     distributed CR needs (`halo_from_left`, `halo_from_right`, `psum`,
     `all_gather`). `messages` counts this rank's point-to-point sends and
     receives and its collective calls; `staged_messages` those of them that
-    went through the host."""
+    went through the host. `capturable` says whether its messages can sit
+    in a CUDA graph (NCCL)."""
 
     def __init__(self, mesh, name: str):
         names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
@@ -88,6 +99,7 @@ class ShardAxis:
         device_type = "cuda" if self.backend == "nccl" else "cpu"
         check_backend(self.backend, device_type, dist.get_world_size())
         self._peers = [dist.get_global_rank(self.group, i) for i in range(self.size)]
+        self.capturable = self.backend == "nccl"
         self.messages = 0
         self.staged_messages = 0
 
@@ -99,7 +111,8 @@ class ShardAxis:
 
     def _shift(self, x, to_right: bool):
         """Send x to the next rank (to_right) or the previous one and receive
-        the other neighbour's x; the edge rank without a sender gets zeros."""
+        the other neighbour's x; the edge rank without a sender gets zeros
+        (on an axis of one rank, with no message at all)."""
         src = self.rank - 1 if to_right else self.rank + 1
         dst = self.rank + 1 if to_right else self.rank - 1
         ops, recv, staged = [], None, False
@@ -110,6 +123,8 @@ class ShardAxis:
             staged = self._count(x)
             recv = torch.empty(x.shape, dtype=x.dtype, device="cpu" if staged else x.device)
             ops.append(dist.P2POp(dist.irecv, recv, self._peers[src], self.group))
+        if not ops:
+            return torch.zeros_like(x)
         for work in dist.batch_isend_irecv(ops):
             work.wait()
         if recv is None:
@@ -213,10 +228,12 @@ def dcr_solve(A, Bp, E, r, F, rb, axis: ShardAxis, local_len: int, n_dev: int):
     dF_sum, drb_sum = _unpack(axis.psum(_pack(dF_acc, drb_acc)), (dF_acc, drb_acc))
 
     # phase 2: gather the D blocks left and reduce them to the root on every
-    # rank (D is small; every rank keeps its back-substitution data local)
+    # rank (D is small; every rank keeps its back-substitution data local):
+    # the CR kernel on a card, its plain version on the CPU
     blocks = (A, Bp, E, r)
     Ag, Bg, Eg, rg = _unpack(axis.all_gather(_pack(*blocks)), [x[0] for x in blocks], (n_dev,))
-    Xg, xb = cr_solve_lanes(Ag, Bg, Eg, F + dF_sum, rg, rb + drb_sum)
+    root = (Ag, Bg, Eg, F + dF_sum, rg, rb + drb_sum)
+    Xg, xb = cr_solve_batched(*(x.contiguous() for x in root))
     X = Xg[axis.rank : axis.rank + 1]
 
     # phase 3: local back-substitution down the rank's levels
@@ -244,17 +261,37 @@ def make_sharded_tridiag_solver(mesh, axis: str, N: int, bs: int, wb: int):
     (A (N, bs, bs, B), B (N-1, bs, bs, B), E (N, bs, wb, B), F (wb, wb, B),
     r (N, bs, B), rb (wb, B)), the same on every rank of the axis; so are
     the outputs X (N, bs, B) and xb (wb, B). The chain is padded to a power
-    of two >= max(N, D); `solve.axis` is the ShardAxis (its counters)."""
+    of two >= max(N, D); `solve.axis` is the ShardAxis (its counters).
+
+    Over NCCL with CUDA tensors a call replays a CUDA graph (`CallGraph`)
+    captured at the first call of each input signature (warm-up, then
+    capture, as the JAX package jits its shard_map'd solve), its messages
+    and the CR kernel's root solve inside; `solve.graphs` holds them and a
+    replay adds to the axis's and the kernel's counters what its capture
+    added. Every rank of the axis must make the same calls. `solve.eager`
+    runs the solve op by op on any device (the form over gloo and on the
+    CPU); a capture or replay that fails raises."""
     ax = ShardAxis(mesh, axis)
     padded_len(N, ax.size)
+    counters = [*KERNEL_COUNTERS, (ax, "messages"), (ax, "staged_messages")]
+    graphs = {}
 
-    def solve(A, B, E, F, r, rb):
+    def eager(A, B, E, F, r, rb):
         if tuple(A.shape[:3]) != (N, bs, bs) or tuple(E.shape[1:3]) != (bs, wb):
             raise ValueError(f"chain of shape A {tuple(A.shape)}, E {tuple(E.shape)}; "
                              f"this solver takes N={N}, bs={bs}, wb={wb}")
         return _sharded_chain_lanes(ax, A, B, E, F, r, rb)
 
-    solve.axis = ax
+    def solve(A, B, E, F, r, rb):
+        args = (A, B, E, F, r, rb)
+        if not (ax.capturable and A.device.type == "cuda"):
+            return eager(*args)
+        key = signature(args)
+        if key not in graphs:
+            graphs[key] = CallGraph(eager, args, counters)
+        return graphs[key].replay(args)
+
+    solve.axis, solve.eager, solve.graphs = ax, eager, graphs
     return solve
 
 
@@ -264,16 +301,17 @@ class _ShardedSolveKKT:
     locally (replicated over the axis). As in the JAX package, the sharded
     solve ignores the inner operator's refinement and Ruiz scaling.
     `block_solves` counts the block solves as StructuredKKT does: the
-    distributed ones and the inner operator's local ones (lsq_lambda)."""
+    distributed ones and the inner operator's local ones (lsq_lambda).
+    `counters` are the plain ints a solve with it moves (its block solves,
+    the inner operator's, the axis's messages), which a graph's replay adds
+    to (solver/graph.py::graph_counters)."""
 
     def __init__(self, inner, axis: ShardAxis):
         self.inner = inner
         self.axis = axis
-        self._sharded_solves = 0
-
-    @property
-    def block_solves(self):
-        return self._sharded_solves + self.inner.block_solves
+        self.block_solves = 0
+        self.counters = [(self, "block_solves"), (inner, "block_solves"), (axis, "messages"),
+                         (axis, "staged_messages")]
 
     def row_norms(self, z):
         return self.inner.row_norms(z)
@@ -290,14 +328,17 @@ class _ShardedSolveKKT:
     def lsq_lambda(self, z, g, sf, sc, Drow=None):
         # the LSQ init/refresh solve is small next to the IPM iterations: it
         # runs through the local (unsharded) block elimination
-        return self.inner.lsq_lambda(z, g, sf, sc, Drow)
+        before = self.inner.block_solves
+        lam = self.inner.lsq_lambda(z, g, sf, sc, Drow)
+        self.block_solves += self.inner.block_solves - before
+        return lam
 
     def solve(self, data, sigma_z, Drow, delta_w, delta_c, rz, rp):
         blocks = self.inner._assemble(data, sigma_z, Drow, delta_w, delta_c, rz, rp)
         sdt = self.inner.solve_dtype
         if sdt is not None:
             blocks = tuple(x.to(sdt) for x in blocks)
-        self._sharded_solves += 1
+        self.block_solves += 1
         # under the tick's vmap the whole batch goes through one distributed
         # solve, and the collectives never see a batched tensor
         X, xb = lane_solve(functools.partial(_sharded_chain_lanes, self.axis), *blocks)

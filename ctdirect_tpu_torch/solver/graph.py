@@ -1,13 +1,23 @@
-"""CUDA graphs of the batched IPM's segments (`solver/ipm.py::batched_ipm`):
-the compiled form of a solve, the port's counterpart of `jax.jit` over the
-JAX package's traced IPM. `BatchGraph` holds one solve's persistent state
-and one graph per segment, captured at the segment's first use and
-replayed as the host's flag reads order them. `BatchSolver` replays them
-for its batch sizes (parallel/batch.py), and the unbatched solve of
-`solver/interface.py` at B=1."""
+"""CUDA graphs: the port's counterpart of `jax.jit`.
+
+`BatchGraph` holds the segments of the batched IPM (`solver/ipm.py::
+batched_ipm`), the compiled form of a solve: one solve's persistent state
+and one graph per segment, captured at the segment's first use and replayed
+as the host's flag reads order them. `BatchSolver` replays them for its
+batch sizes (parallel/batch.py), and the unbatched solve of
+`solver/interface.py` at B=1.
+
+`CallGraph` holds one call of a function for one input signature: the MPC
+tick (parallel/mpc.py) and the distributed CR (parallel/time_shard.py).
+
+A KKT operator whose solve exchanges messages over a mesh axis (`kkt.axis`,
+parallel/time_shard.py) can sit in a graph only over NCCL, which carries
+CUDA tensors from card to card; gloo stages them through the host, which no
+graph can hold (`kkt_capturable`)."""
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import time
 
@@ -19,15 +29,98 @@ from ctdirect_tpu_torch.solver.ipm import IPMResult
 from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
 
 
+KERNEL_COUNTERS = ((cr_solve_batched, "launches"), (cr_solve_batched, "grid_launches"))
+
+
 def graph_counters(kkt):
     """The plain-int counters a solve with the KKT operator `kkt` moves
     ((object, attribute) pairs; a replay adds what its capture added): the
-    CR kernel's launches and CUDA launches, and a structured operator's
-    block solves."""
-    counters = [(cr_solve_batched, "launches"), (cr_solve_batched, "grid_launches")]
+    CR kernel's launches and CUDA launches, a structured operator's block
+    solves, and a sharded operator's own (`kkt.counters`: its block solves
+    and its axis's messages)."""
+    counters = list(KERNEL_COUNTERS)
     if isinstance(kkt, StructuredKKT):
         counters.append((kkt, "block_solves"))
+    counters += getattr(kkt, "counters", [])
     return counters
+
+
+def kkt_capturable(kkt) -> bool:
+    """Whether a solve with the KKT operator `kkt` can be captured: yes
+    unless its messages go over a gloo axis (staged through the host)."""
+    axis = getattr(kkt, "axis", None)
+    return axis is None or axis.capturable
+
+
+def signature(args) -> tuple:
+    """What a captured call is specialised to: the shape, dtype and device
+    of every tensor in `args` (a pytree)."""
+    return tuple((tuple(a.shape), a.dtype, a.device) for a in tree_leaves(args))
+
+
+@contextlib.contextmanager
+def _no_collector():
+    """No cyclic garbage collection inside a capture: collecting a dead
+    solver there would destroy its graphs, which invalidates the capture."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
+class CallGraph:
+    """One call `fn(*args)` captured as a CUDA graph for one input signature.
+
+    Capture follows `torch.cuda.graph`'s protocol: `fn` runs once on a side
+    stream first, so that the first-use work (the CR kernel's build and
+    load, lazily made tables, library handles, NCCL communicators) happens
+    outside the capture; the kernel launches and messages of that warm-up
+    are real and counted. The capture itself launches nothing, so the
+    plain-int counters the call moves (`counters`: (object, attribute)
+    pairs) are put back after it, and each replay adds what the capture
+    added.
+
+    `replay(args)` copies the caller's tensors into the graph's static
+    inputs and returns clones of its static outputs (the same pytree),
+    which the next replay overwrites: what a call returns stays valid after
+    the next one, as a jitted function's fresh arrays do. A capture or
+    replay that fails raises."""
+
+    def __init__(self, fn, args, counters):
+        device = tree_leaves(args)[0].device
+        self.inputs = tree_map(lambda a: a.clone(), args)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn(*self.inputs)
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        before = [getattr(obj, name) for obj, name in counters]
+        self.graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with _no_collector(), torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+        finally:
+            self.counts = [(obj, name, getattr(obj, name) - b) for (obj, name), b in zip(counters, before)]
+            for (obj, name), b in zip(counters, before):
+                setattr(obj, name, b)
+        self.capture_s = time.perf_counter() - t0
+        # the graph's private memory pool (its intermediates and outputs)
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+    def replay(self, args):
+        for dst, src in zip(tree_leaves(self.inputs), tree_leaves(args)):
+            dst.copy_(src)
+        self.graph.replay()
+        for obj, name, added in self.counts:
+            setattr(obj, name, getattr(obj, name) + added)
+        return tree_map(lambda a: a.clone(), self.outputs)
 
 
 class BatchGraph:
@@ -115,16 +208,10 @@ class BatchGraph:
         before = self._counts()
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
-        # no cyclic garbage collection inside the capture: collecting a dead
-        # solver there would destroy its graphs, which invalidates the capture
-        collecting = gc.isenabled()
-        gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with _no_collector(), torch.cuda.graph(graph, pool=self.pool):
                 self._commit(fn(self.state))
         finally:
-            if collecting:
-                gc.enable()
             added = [a - b for a, b in zip(self._counts(), before)]
             for (obj, attr), b in zip(self.counters, before):
                 setattr(obj, attr, b)

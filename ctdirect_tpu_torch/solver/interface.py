@@ -14,7 +14,7 @@ import torch
 from ctdirect_tpu_torch.model.init import InitialGuess
 from ctdirect_tpu_torch.model.ocp import OCP
 from ctdirect_tpu_torch.model.solution import Solution
-from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters
+from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters, kkt_capturable
 from ctdirect_tpu_torch.solver.ipm import (
     STATUS_MESSAGES,
     BatchStats,
@@ -78,16 +78,27 @@ class DOCPSolver:
     the structured scan and in the refinement residual (`_block_matvec`'s
     einsums reduce in another order under vmap) they agree to rounding.
 
-    `kkt` is the KKT operator both forms use (None for "dense"); its
-    `block_solves` also counts the real block solves of the segments'
-    warm-ups in a first call, which `warmup_block_solves` sums."""
+    `kkt` is the KKT operator both forms use: the one passed, else the one
+    `options.kkt_mode` asks for (None for "dense"); its `block_solves` also
+    counts the real block solves of the segments' warm-ups in a first call,
+    which `warmup_block_solves` sums.
 
-    def __init__(self, docp: DOCP, options: IPMOptions):
+    The time-sharded solve is `DOCPSolver(docp, options,
+    kkt=TimeShardedKKT(docp, mesh))`, called on every rank of the mesh's
+    time axis with the same arguments: the counterpart of the JAX package's
+    `ipm_solve(kkt=TimeShardedKKT)` inside its jitted `while_loop`. Over
+    NCCL on a card it is compiled, the distributed CR's messages and the CR
+    kernel's root solve inside the segment graphs; every rank reads its own
+    flags, which agree because the sharded solve hands every rank the same
+    bytes. Over gloo (messages staged through the host) a call is
+    `eager`."""
+
+    def __init__(self, docp: DOCP, options: IPMOptions, kkt=None):
         self.docp = docp
         self.options = options
         self.spec = make_spec(docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
-        self.kkt = make_kkt(docp, options)
-        self.graphed = docp.device.type == "cuda" and not options.debug
+        self.kkt = make_kkt(docp, options) if kkt is None else kkt
+        self.graphed = docp.device.type == "cuda" and not options.debug and kkt_capturable(self.kkt)
         self.stats = BatchStats()
         self.graph = None  # the BatchGraph of the compiled solve, made at its first call
         self.program = batched_ipm(docp.nlp_objective, docp.constraints, self.spec, options, self.kkt,

@@ -916,6 +916,9 @@ class BatchStats:
     host_syncs: int = 0  # device->host reads of a batch-wide loop condition
     iterations: int = 0  # trips of the batch's outer loop
     segments: dict = field(default_factory=dict)  # runs of each segment (`batched_ipm`)
+    # a list to record every flag read in order ((flag name, value)): the
+    # ranks of a time-sharded solve compare theirs to show lockstep
+    flag_log: Optional[list] = None
 
 
 class _Prob(NamedTuple):
@@ -1633,7 +1636,10 @@ def batched_ipm(
 
         def flag(name) -> bool:
             stats.host_syncs += 1
-            return bool(state[name])
+            value = bool(state[name])
+            if stats.flag_log is not None:
+                stats.flag_log.append((name, value))
+            return value
 
         if opts.max_iter == 0:
             return

@@ -1,10 +1,16 @@
 """Lightweight timing / profiling helpers (PyTorch port of
 `ctdirect_tpu.utils.profiling`): wall-clock timing with device
-synchronization, and `torch.profiler` tracing into a Chrome trace."""
+synchronization, and `torch.profiler` tracing into a Chrome trace; on a
+card, a profile that counts the CUDA kernels it saw and the activity
+records CUPTI dropped (`kernel_events`)."""
 
 from __future__ import annotations
 
 import contextlib
+import os
+import re
+import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -14,6 +20,13 @@ import torch
 
 # the file `trace` writes into its logdir (chrome://tracing, Perfetto)
 TRACE_FILE = "trace.json"
+# the CR kernel's CUDA kernels (csrc/cr_solve.cu), as the profiler names them;
+# pack and unpack are transpose_kernel
+CR_KERNELS = re.compile(r"\b(up_odd|up_even|root_solve|down|transpose_kernel)<")
+# kineto's warning when CUPTI had no buffer room for activity records
+_DROPPED = re.compile(rb"Dropped (\d+) activity records")
+# kernel_events' profiles of one call at most (a profile that lost records is taken again)
+PROFILE_TRIES = 3
 
 
 @dataclass
@@ -107,3 +120,75 @@ def trace(logdir: str, activities: Iterable[torch.profiler.ProfilerActivity]):
     with torch.profiler.profile(activities=list(activities)) as prof:
         yield prof
     prof.export_chrome_trace(str(out / TRACE_FILE))
+
+
+@contextlib.contextmanager
+def _stderr_to(f):
+    """File descriptor 2 (where kineto writes its warnings) into the file
+    `f` over the block."""
+    sys.stderr.flush()
+    saved = os.dup(2)
+    os.dup2(f.fileno(), 2)
+    try:
+        yield
+    finally:
+        sys.stderr.flush()
+        os.dup2(saved, 2)
+        os.close(saved)
+
+
+def device_profile(fn):
+    """fn() under torch.profiler (CPU and CUDA activities), synchronized.
+    Returns (fn's result, profile, wall s, dropped): `dropped` sums CUPTI's
+    dropped activity records as kineto reports them on stderr (copied back
+    there) while it profiles and stops. Kineto prints warnings only where
+    KINETO_LOG_LEVEL is at most 2 when its profiler first starts in the
+    process; PyTorch otherwise keeps only its errors, and `dropped` reads 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryFile() as f:
+        with _stderr_to(f):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        f.seek(0)
+        err = f.read()
+    os.write(2, err)
+    return out, prof, wall, dropped_records(err)
+
+
+def dropped_records(err: bytes) -> int:
+    """The activity records that kineto's warnings in `err` (stderr's bytes)
+    say CUPTI dropped."""
+    return sum(int(n) for n in _DROPPED.findall(err))
+
+
+def device_kernels(prof) -> list:
+    """The profile's CUDA kernels (its key averages with device time, not
+    the device-side spans of profiler ranges named `stage:...`)."""
+    return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+            and not e.key.startswith("stage:")]
+
+
+def kernel_events(fn) -> dict:
+    """fn() under `device_profile`; fn returns the CR kernel's CUDA
+    launches that its call makes (from the wrapper's counts), and the
+    profiler must see that many (CR_KERNELS). A profile in which CUPTI
+    dropped records cannot count them: it is taken again, PROFILE_TRIES
+    profiles at most. Raises AssertionError on a count that differs with
+    nothing dropped, or when every profile dropped records. Returns prof,
+    wall, want, seen, dropped (summed over the profiles) and tries."""
+    dropped = 0
+    for k in range(1, PROFILE_TRIES + 1):
+        want, prof, wall, lost = device_profile(fn)
+        seen = sum(e.count for e in device_kernels(prof) if CR_KERNELS.search(e.key))
+        dropped += lost
+        if seen == want or not lost:
+            break
+    if seen != want:
+        raise AssertionError(f"{seen} kernel events in the profile, planned {want} ({k} profiles, {dropped} "
+                             f"activity records dropped)")
+    return dict(prof=prof, wall=wall, want=want, seen=seen, dropped=dropped, tries=k)

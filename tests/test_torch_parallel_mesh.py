@@ -1,19 +1,22 @@
 """The mesh paths of ctdirect_tpu_torch.parallel against the JAX package's on
 a mesh of the same shape, float64, CPU: BatchSolver(mesh=) over a batch axis
-of 4, the 1-D batch-sharded MPC tick and the 2-D (batch 2 x time 2) tick,
-and the five legs of ctdirect_tpu_torch.entry.dryrun_multichip.
+of 4, the 1-D batch-sharded MPC tick, the 2-D (batch 2 x time 2) tick and
+the 2-D tick over a time axis of one rank (batch 4 x time 1), and the five
+legs of ctdirect_tpu_torch.entry.dryrun_multichip.
 
 The port runs in gloo worlds of WORLD spawned processes
 (ctdirect_tpu_torch.parallel.spmd.launch; worker
 torch_helpers.spmd_mesh_world, which imports no JAX); rank i of a batch axis
 of D holds rows [i B/D, (i+1) B/D) of the JAX call's global batch. The JAX
-side runs on 4 of the 8 virtual CPU devices of tests/conftest.py."""
+side runs on 4 of the 8 virtual CPU devices of tests/conftest.py. On the
+card (marked `cuda`, skipped without one; no JAX needed: `python -m pytest
+--noconftest -p no:cacheprovider -m cuda tests/test_torch_parallel_mesh.py`):
+the 2-D tick in a one-rank NCCL world replays one CUDA graph with its
+messages inside, held to the eager tick."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.sharding import Mesh
+import torch
 
 from torch_helpers import WORLD, WORLD_TIMEOUT, jax_docp, spmd_mesh_world
 
@@ -24,6 +27,9 @@ TICK = dict(grid_size=30, iters=3, B=4, ticks=2)
 
 
 def jmesh(shape, names):
+    import jax
+    from jax.sharding import Mesh
+
     return Mesh(np.array(jax.devices()[: int(np.prod(shape))]).reshape(shape), axis_names=names)
 
 
@@ -41,6 +47,8 @@ def batch_inputs():
 
 @pytest.fixture(scope="module")
 def jax_runs():
+    import jax
+    import jax.numpy as jnp
     from ctdirect_tpu.parallel.batch import BatchSolver
     from ctdirect_tpu.parallel.mpc import MPCController, broadcast_state
     from ctdirect_tpu.solver.ipm import IPMOptions
@@ -59,6 +67,7 @@ def jax_runs():
     for key, mesh, kw in (
         ("tick", jmesh((4,), ("batch",)), dict(kkt_algorithm="cr")),
         ("tick_2d", jmesh((2, 2), ("batch", "time")), dict(time_axis="time")),
+        ("tick_2d_t1", jmesh((4, 1), ("batch", "time")), dict(time_axis="time")),
     ):
         ctrl = MPCController(d, x0_boundary_rows=[0, 1], resolve_iters=TICK["iters"], mesh=mesh, **kw)
         states = broadcast_state(warm, TICK["B"])
@@ -96,18 +105,23 @@ def test_batch_solver_mesh_matches_jax(jax_runs, world, key):
     assert (np.asarray(want.status) == 0).all()
 
 
-@pytest.mark.parametrize("key", ["tick", "tick_2d"])
+# the ticks: the mesh key -> the batch shards it has over the world of 4
+TICK_SHARDS = {"tick": 4, "tick_2d": 2, "tick_2d_t1": 4}
+
+
+@pytest.mark.parametrize("key", sorted(TICK_SHARDS))
 def test_sharded_tick_matches_jax(jax_runs, world, key):
     """The ranks' rows, put together, are the JAX tick's global result after
-    2 ticks from one warm state (states, u0, KKT to 1e-10); on the 2-D mesh
-    the two ranks of a time group hold the same rows and agree to 1e-13."""
+    2 ticks from one warm state (states, u0, KKT to 1e-10); on the 2 x 2
+    mesh the two ranks of a time group hold the same rows and agree to
+    1e-13; a time axis of one rank solves its chain alone."""
     want = jax_runs[key]
     B = TICK["B"]
     by_rows = {}
     for r in world:
         by_rows.setdefault(r[key]["rows"], []).append(r[key])
     assert sorted(by_rows) == [(i * B // len(by_rows), (i + 1) * B // len(by_rows)) for i in range(len(by_rows))]
-    assert len(by_rows) == (4 if key == "tick" else 2)
+    assert len(by_rows) == TICK_SHARDS[key]
     for (lo, hi), group in by_rows.items():
         got = group[0]
         for a, b in zip(got["states"], want["states"]):
@@ -119,6 +133,39 @@ def test_sharded_tick_matches_jax(jax_runs, world, key):
             for a, b in zip(other["states"] + [other["u0"], other["kkt"]], got["states"] + [got["u0"], got["kkt"]]):
                 np.testing.assert_allclose(a, b, rtol=0, atol=1e-13)
         assert got["block_solves"] == TICK["ticks"] * TICK["iters"]
+
+
+@pytest.mark.parametrize("key", sorted(TICK_SHARDS))
+def test_sharded_tick_makes_no_capture_hazard(world, key):
+    """No rank's first tick makes a call a CUDA graph capture refuses
+    (`CaptureHazards`): over NCCL the card captures these ticks, the 2-D
+    ones with their messages; on the CPU they run eagerly."""
+    for r in world:
+        assert r[key]["hazards"] == [], r[key]["hazards"]
+        assert not r[key]["graphed"]
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_2d_tick_replays_on_card():
+    """The 2-D tick over batch=1 x time=1 in a one-rank NCCL world on the
+    card, through shard_timing's run and checks: graphed, one capture, each
+    replay within 1e-13 of the eager tick from the same state (bitwise
+    expected), max KKT < 1e-10, u0 within 1e-10 of the unsharded tick, each
+    replay adding the distributed solves' messages (3 per solve: a psum and
+    two gathers, none staged); a profiled replay sees the root solves' CR
+    kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL and the CR kernel have no CPU mode")
+    from ctdirect_tpu_torch import shard_timing
+
+    tick = dict(shard_timing.TICK, B=4, N=8, iters=2, warmup=1, timed=2, time=1, one_card=True)
+    cfg = dict(tick=tick)
+    ranks = shard_timing.run(1, cfg, timeout=WORLD_TIMEOUT)
+    shard_timing.report(ranks, cfg, log=lambda m: None)
+    t = ranks[0]["tick"]
+    assert t["graphed"] and t["captures"] == 1 and t["replay_eager"] <= 1e-13, t
+    assert t["replay"]["messages"] == 3 * 2 * t["ticks"] and t["replay"]["staged"] == 0, t
+    assert t["profiled"]["seen"] == 3 * 2, t
 
 
 def test_dryrun_multichip_passes_all_legs(capsys):
@@ -142,8 +189,6 @@ def test_dryrun_multichip_passes_all_legs(capsys):
 def test_kkt_factory_takes_precedence():
     """MPCController(kkt_factory=) ticks with the factory's operator, as the
     JAX controller does (mpc.py:90-91), and no other."""
-    import torch
-
     from ctdirect_tpu_torch.parallel import MPCController, broadcast_state
     from ctdirect_tpu_torch.solver.ipm import IPMOptions
     from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT

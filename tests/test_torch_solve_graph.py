@@ -353,3 +353,43 @@ def test_debug_runs_eagerly_on_card(card, capsys):
     res, _ = run(*args)
     assert not run.graphed and run.captures == 0 and run.graph is None
     assert capsys.readouterr().out.count("it=") == res.iterations
+
+
+# BASELINE config 2 (Goddard GL2 N=200, f64) with chip_smoke.py phase 10's options
+PROFILED = ("goddard", 200, "gauss_legendre_2_constant_control", dict(tol=1e-8, mu_strategy="adaptive", kkt_mode="cr"))
+PROFILED_REPLAYS = 5
+
+
+@pytest.mark.cuda
+def test_profiled_replays_see_every_cr_launch_on_card(card, monkeypatch):
+    """BASELINE config 2 replayed PROFILED_REPLAYS times under
+    torch.profiler (utils.profiling.kernel_events): every profile sees the
+    CR kernel's CUDA launches that the replay's block solves plan, a profile
+    that lost records to CUPTI is taken again; each reading is printed (run
+    with -s), with the records dropped."""
+    import ctdirect_tpu_torch as ct
+    from ctdirect_tpu_torch.problems import get_problem
+    from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched as kernel
+    from ctdirect_tpu_torch.solver.interface import _get_solver
+    from ctdirect_tpu_torch.utils.profiling import kernel_events
+
+    monkeypatch.setenv("KINETO_LOG_LEVEL", "2")  # read where kineto first starts in the process
+    name, grid, scheme, opts = PROFILED
+    prob = get_problem(name)
+    docp = ct.transcribe(prob.ocp, grid_size=grid, scheme=scheme, device=card)
+    run = _get_solver(docp, ct.IPMOptions(**opts))
+    args = (docp.initial_guess(prob.init), docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+    run(*args)
+    per = len(kernel.plan(1 << (docp.N - 1).bit_length(), 1, 0, 1, 8))
+
+    def replay():
+        n0 = run.kkt.block_solves
+        run(*args)
+        return (run.kkt.block_solves - n0) * per
+
+    for k in range(PROFILED_REPLAYS):
+        rec = kernel_events(replay)
+        print(f"profiled replay {k}: {rec['seen']} CR kernel events seen, planned {rec['want']}; CUPTI dropped "
+              f"{rec['dropped']} activity records over {rec['tries']} profiles; wall {rec['wall']:.3f} s")
+        assert rec["seen"] == rec["want"] > 0
+    docp.release_solvers()

@@ -1,5 +1,5 @@
 """The compiled MPC tick: the port's counterpart of `jax.jit(vtick)` is the
-tick captured as a CUDA graph and replayed (parallel/mpc.py::TickGraph).
+tick captured as a CUDA graph and replayed (solver/graph.py::CallGraph).
 
 On the CPU (no card): every tick the card captures makes no capture-illegal
 call (`CaptureHazards`), the constants hoisted out of the callbacks leave

@@ -5,16 +5,22 @@ of the same size D, and against the port's unsharded CR, float64, CPU.
 The port runs in one gloo world of WORLD spawned processes
 (ctdirect_tpu_torch.parallel.spmd.launch) whose worker,
 torch_helpers.spmd_time_shard_world, imports no JAX: D=4 is a 1-D mesh over
-the world, D=2 the time axis of a 2 x 2 mesh. The JAX side runs on D of the
-8 virtual CPU devices of tests/conftest.py. Tolerances as
-tests/test_parallel.py: atol 1e-10 (1 + max |x|)."""
+the world, D=2 the time axis of a 2 x 2 mesh, D=1 that of a 4 x 1 mesh. The
+JAX side runs on D of the 8 virtual CPU devices of tests/conftest.py.
+Tolerances as tests/test_parallel.py: atol 1e-10 (1 + max |x|).
 
-import jax
-import jax.numpy as jnp
+The time-sharded solve as the card compiles it (the B=1 program of
+solver/interface.py::DOCPSolver with kkt=TimeShardedKKT) runs here op by op
+(`BatchGraph(capture=False)`): held to the eager ipm_solve and to the JAX
+package's, free of capture hazards, its ranks in lockstep. On the card
+(marked `cuda`, skipped without one; no JAX needed: `python -m pytest
+--noconftest -p no:cacheprovider -m cuda tests/test_torch_time_shard.py`):
+a one-rank NCCL world whose distributed CR and time-sharded solve replay
+CUDA graphs with their messages inside, against their eager forms."""
+
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh
 
 from torch_helpers import (
     WORLD,
@@ -25,8 +31,8 @@ from torch_helpers import (
 )
 
 # (D, N, bs, wb, B, seed): N=13 pads to 16 (local levels on every rank);
-# N=D leaves one block per rank (no local level)
-CHAINS = [(2, 13, 5, 7, 2, 0), (4, 13, 5, 7, 2, 1), (2, 2, 5, 7, 2, 2), (4, 4, 5, 7, 2, 3)]
+# N=D leaves one block per rank (no local level); D=1 solves on one rank
+CHAINS = [(2, 13, 5, 7, 2, 0), (4, 13, 5, 7, 2, 1), (2, 2, 5, 7, 2, 2), (4, 4, 5, 7, 2, 3), (1, 13, 5, 7, 2, 4)]
 # tests/test_parallel.py's fast cell and its seeded inputs (:51-66)
 KKT_CASE = dict(name="double_integrator_minenergy", scheme="trapeze", grid_size=32)
 # tests/test_parallel.py::test_time_sharded_full_solve
@@ -34,6 +40,9 @@ IPM_CASE = dict(name="beam", scheme="trapeze", grid_size=16, options=dict(tol=1e
 
 
 def jmesh(D, axis="time"):
+    import jax
+    from jax.sharding import Mesh
+
     return Mesh(np.array(jax.devices()[:D]), axis_names=(axis,))
 
 
@@ -77,7 +86,9 @@ def test_world_imports_no_jax(world):
 def test_dcr_solve_matches_jax_and_plain(world, case):
     """make_sharded_tridiag_solver at D ranks against the JAX package's at D
     devices (lane by lane) and against the port's unsharded cr_solve_lanes;
-    every rank holds the same result."""
+    every rank holds the same result; on the CPU nothing is captured."""
+    import jax
+    import jax.numpy as jnp
     from ctdirect_tpu.parallel.time_shard import make_sharded_tridiag_solver as solver_j
 
     from ctdirect_tpu_torch.parallel.time_shard import padded_len
@@ -102,14 +113,16 @@ def test_dcr_solve_matches_jax_and_plain(world, case):
     levels = int(np.log2(padded_len(N, D) // D))
     for r in world:
         c = r["chains"][case]
-        assert c["staged"] == 0
+        assert c["staged"] == 0 and c["graphs"] == 0
         assert c["messages"] == 2 * levels * ((c["rank"] > 0) + (c["rank"] < D - 1)) + 3
 
 
-@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("D", [1, 2, 4])
 def test_time_sharded_kkt_matches_jax(world, inputs, D):
     """TimeShardedKKT.solve against the JAX TimeShardedKKT.solve at the same
     D, on tests/test_parallel.py's fast cell."""
+    import jax
+    import jax.numpy as jnp
     from ctdirect_tpu.parallel.time_shard import TimeShardedKKT as TSJ
 
     from torch_helpers import jax_docp
@@ -134,6 +147,18 @@ def test_time_sharded_kkt_matches_jax(world, inputs, D):
 def test_time_sharded_full_solve_matches_jax(world):
     """The full IPM with TimeShardedKKT at D=4 (beam, trapeze, N=16) reaches
     the JAX run's status and objective (tests/test_parallel.py:72-93)."""
+    res = jax_full_solve(4)
+    for r in world:
+        assert r["ipm"]["status"] == int(res.status) == 0
+        np.testing.assert_allclose(r["ipm"]["objective"], float(res.objective), rtol=1e-8)
+    assert world[0]["ipm"]["block_solves"] >= world[0]["ipm"]["iterations"] > 0
+
+
+def jax_full_solve(D):
+    """The JAX package's jitted ipm_solve with its TimeShardedKKT over D
+    devices on IPM_CASE."""
+    import jax
+    import jax.numpy as jnp
     from ctdirect_tpu import transcribe
     from ctdirect_tpu.parallel.time_shard import TimeShardedKKT as TSJ
     from ctdirect_tpu.problems import get_problem
@@ -141,14 +166,76 @@ def test_time_sharded_full_solve_matches_jax(world):
 
     d = transcribe(get_problem(IPM_CASE["name"]).ocp, grid_size=IPM_CASE["grid_size"], scheme=IPM_CASE["scheme"])
     spec = make_spec(d._z_lb, d._z_ub, d._c_lb, d._c_ub)
-    kkt = TSJ(d, jmesh(4), axis="time")
-    res = jax.jit(lambda z0: ipm_solve(d.nlp_objective, d.constraints, spec, z0, d._z_lb, d._z_ub, d._c_lb,
-                                       d._c_ub, options=IPMOptions(**IPM_CASE["options"]), kkt=kkt))(
+    kkt = TSJ(d, jmesh(D), axis="time")
+    return jax.jit(lambda z0: ipm_solve(d.nlp_objective, d.constraints, spec, z0, d._z_lb, d._z_ub, d._c_lb,
+                                        d._c_ub, options=IPMOptions(**IPM_CASE["options"]), kkt=kkt))(
         jnp.asarray(d.initial_guess(None)))
+
+
+def test_time_sharded_b1_program_matches_eager_and_jax(world):
+    """The time-sharded solve as the card compiles it (DOCPSolver(kkt=
+    TimeShardedKKT): the B=1 program, run op by op) at D=2: the eager
+    ipm_solve's status and iterations, z within 1e-10; the JAX run's status
+    and objective over a mesh of 2 (as the D=4 test). On the CPU the solver
+    runs eagerly (graphed false)."""
+    res = jax_full_solve(2)
     for r in world:
-        assert r["ipm"]["status"] == int(res.status) == 0
-        np.testing.assert_allclose(r["ipm"]["objective"], float(res.objective), rtol=1e-8)
-    assert world[0]["ipm"]["block_solves"] >= world[0]["ipm"]["iterations"] > 0
+        b1 = r["b1"]
+        assert (b1["status"], b1["iterations"]) == (b1["eager"]["status"], b1["eager"]["iterations"])
+        np.testing.assert_allclose(b1["z"], b1["eager"]["z"], rtol=0, atol=1e-10)
+        assert b1["status"] == int(res.status) == 0
+        np.testing.assert_allclose(b1["objective"], float(res.objective), rtol=1e-8)
+        assert not b1["graphed"] and b1["messages"] > 0
+
+
+def test_time_sharded_b1_segments_make_no_capture_hazard(world):
+    """No segment of the time-sharded B=1 program makes a call a CUDA graph
+    capture refuses (`CaptureHazards`, on every rank)."""
+    for r in world:
+        assert r["b1"]["hazards"] == [], r["b1"]["hazards"]
+
+
+def test_time_group_ranks_stay_in_lockstep(world):
+    """Every rank of a time axis holds the same bytes where the sharded solve
+    hands them over: the distributed CR's X and xb on every chain, and so
+    the time-sharded solve's z and every flag read of its B=1 program, in
+    order (ranks whose reads differed would leave lockstep and hang in the
+    next collective)."""
+    ref = world[0]
+    assert len(ref["b1"]["flags"]) > 0
+    for r in world[1:]:
+        for mine, theirs in zip(r["chains"], ref["chains"]):
+            np.testing.assert_array_equal(mine["X"], theirs["X"])
+            np.testing.assert_array_equal(mine["xb"], theirs["xb"])
+        assert r["b1"]["flags"] == ref["b1"]["flags"]
+        np.testing.assert_array_equal(r["b1"]["z"], ref["b1"]["z"])
+    assert {r["b1"]["time_rank"] for r in world} == {0, 1}
+
+
+@pytest.mark.cuda
+def test_nccl_one_rank_graphs_equal_eager_on_card():
+    """A one-rank NCCL world on the card (time=1), through shard_timing's
+    run and checks: the distributed CR on a short chain replays one graph,
+    bitwise its eager form and within 1e-10 x scale of the CR kernel, each
+    replay adding the root's kernel launch and the psum and two gathers to
+    the counts; Goddard config 2 through DOCPSolver(kkt=TimeShardedKKT) is
+    graphed, its replay the first call bit for bit, with the eager
+    ipm_solve's status and objective to 1e-8; a profiled replay of the
+    distributed CR sees its CR kernel launches; nothing is staged through
+    the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL and the CR kernel have no CPU mode")
+    from ctdirect_tpu_torch import shard_timing
+
+    cfg = dict(chains={"short": (16, 5, 7, 3)}, chain_sizes=[1], goddard_sizes=[1])
+    ranks = shard_timing.run(1, cfg, timeout=WORLD_TIMEOUT)
+    shard_timing.report(ranks, cfg, log=lambda m: None)
+    c, g = ranks[0]["chains"][0], ranks[0]["goddard"][0]
+    assert c["graphs"] == 1 and c["bitwise"], c
+    assert (c["messages"], c["launches"], c["staged"]) == (3, 1, 0), c
+    assert c["profiled"]["seen"] == 3, c
+    assert g["graphed"] and g["captures"] > 0 and g["status"] == (0, 0, 0) and g["replay_first"] == 0.0, g
+    assert g["launches"] > 0 and g["grid_launches"] == 3 * g["launches"], g
 
 
 def test_refusals():
@@ -156,6 +243,7 @@ def test_refusals():
     a batch that does not split over its axis (a world of 3; the JAX
     BatchSolver accepts that split, a deliberate deviation), an unknown
     backend, NCCL on CPU tensors or with more ranks than cards."""
+    import jax.numpy as jnp
     from ctdirect_tpu.parallel.batch import BatchSolver as BatchJ
     from ctdirect_tpu.solver.ipm import IPMOptions
 

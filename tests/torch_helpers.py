@@ -5,6 +5,7 @@ and to its PyTorch port (on the CPU, in float64 unless stated) and compares
 the outputs. One intra-op thread per test worker: the suite runs under
 pytest-xdist with several workers on a shared machine."""
 
+import contextlib
 import os
 import traceback
 
@@ -356,17 +357,23 @@ def _jax_loaded():
 def spmd_time_shard_world(world, chains, kkt_case, ipm_case):
     """One gloo world for tests/test_torch_time_shard.py: the distributed CR
     of each chain (D, N, bs, wb, B, seed) through make_sharded_tridiag_solver,
-    beside the port's unsharded cr_solve_lanes; TimeShardedKKT.solve at D=2
-    and 4 on kkt_case's seeded inputs; a full IPM with TimeShardedKKT at D=4
-    on ipm_case."""
+    beside the port's unsharded cr_solve_lanes; TimeShardedKKT.solve at D=1,
+    2 and 4 on kkt_case's seeded inputs; a full IPM with TimeShardedKKT at
+    D=4 on ipm_case; at D=2 the same IPM as the card compiles it (the B=1
+    program, its segments run op by op under CaptureHazards, its flag reads
+    logged) beside the eager ipm_solve."""
     from ctdirect_tpu_torch.parallel.time_shard import TimeShardedKKT, make_sharded_tridiag_solver
+    from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters
+    from ctdirect_tpu_torch.solver.interface import DOCPSolver
     from ctdirect_tpu_torch.solver.ipm import IPMOptions, ipm_solve, make_spec
     from ctdirect_tpu_torch.solver.lanes import _pad_pow2_lanes, cr_solve_lanes
 
     torch.set_num_threads(1)
-    # D=4 over a 1-D mesh, D=2 over the time axis of a 2 x 2 mesh (every rank
-    # builds the same meshes in the same order)
-    meshes = {4: world.mesh((4,), ("time",)), 2: world.mesh((2, 2), ("batch", "time"))}
+    # D=4 over a 1-D mesh, D=2 over the time axis of a 2 x 2 mesh, D=1 over
+    # that of a 4 x 1 mesh (every rank builds the same meshes in the same
+    # order)
+    meshes = {4: world.mesh((4,), ("time",)), 2: world.mesh((2, 2), ("batch", "time")),
+              1: world.mesh((4, 1), ("batch", "time"))}
     out = dict(chains=[], kkt={})
     for D, N, bs, wb, B, seed in chains:
         A, Bp, E, F, r, rb = (torch.tensor(x) for x in random_chain_lanes(N, bs, wb, B, seed=seed))
@@ -375,10 +382,11 @@ def spmd_time_shard_world(world, chains, kkt_case, ipm_case):
         Ap, Bpp, Ep, rp = _pad_pow2_lanes(A, Bp[:-1], E, r)
         Xp, xbp = cr_solve_lanes(Ap, Bpp, Ep, F, rp, rb)
         out["chains"].append(dict(X=n(X), xb=n(xb), X_plain=n(Xp[:N]), xb_plain=n(xbp), rank=solve.axis.rank,
-                                  messages=solve.axis.messages, staged=solve.axis.staged_messages))
+                                  messages=solve.axis.messages, staged=solve.axis.staged_messages,
+                                  graphs=len(solve.graphs)))
 
     d = torch_docp(kkt_case["name"], grid_size=kkt_case["grid_size"], scheme=kkt_case["scheme"])
-    for D in (2, 4):
+    for D in (1, 2, 4):
         kkt = TimeShardedKKT(d, meshes[D], axis="time")
         inp = {k: t(v) for k, v in kkt_case["inputs"].items()}
         data = kkt.prepare(inp["z"], inp["lam"], t(1.0), torch.ones(d.nc, dtype=torch.float64))
@@ -386,12 +394,32 @@ def spmd_time_shard_world(world, chains, kkt_case, ipm_case):
         out["kkt"][D] = dict(dz=n(dz), dlam=n(dlam), block_solves=kkt.block_solves)
 
     d = torch_docp(ipm_case["name"], grid_size=ipm_case["grid_size"], scheme=ipm_case["scheme"])
+    args = (d.initial_guess(None), d._z_lb, d._z_ub, d._c_lb, d._c_ub)
+    opts = IPMOptions(**ipm_case["options"])
     kkt = TimeShardedKKT(d, meshes[4], axis="time")
-    res = ipm_solve(d.nlp_objective, d.constraints, make_spec(d._z_lb, d._z_ub, d._c_lb, d._c_ub),
-                    d.initial_guess(None), d._z_lb, d._z_ub, d._c_lb, d._c_ub,
-                    options=IPMOptions(**ipm_case["options"]), kkt=kkt, device="cpu")
+    res = ipm_solve(d.nlp_objective, d.constraints, make_spec(d._z_lb, d._z_ub, d._c_lb, d._c_ub), *args,
+                    options=opts, kkt=kkt, device="cpu")
     out["ipm"] = dict(status=int(res.status), objective=float(res.objective), iterations=int(res.iterations),
                       block_solves=kkt.block_solves)
+
+    run = DOCPSolver(d, opts, kkt=TimeShardedKKT(d, meshes[2], axis="time"))
+    mode = CaptureHazards()
+
+    def watched(fn):
+        def segment(state):
+            with mode:
+                return fn(state)
+
+        return segment
+
+    segments = {k: watched(f) for k, f in run.program.segments.items()}
+    run.stats.flag_log = []
+    res, _ = run.batched(BatchGraph(segments, graph_counters(run.kkt), "cpu", capture=False), *args)
+    ref, _ = run.eager(*args)
+    out["b1"] = dict(status=res.status, iterations=res.iterations, objective=float(res.objective), z=n(res.z),
+                     eager=dict(status=ref.status, iterations=int(ref.iterations), z=n(ref.z)),
+                     flags=run.stats.flag_log, hazards=mode.where, graphed=run.graphed,
+                     time_rank=run.kkt.axis.rank, messages=run.kkt.axis.messages)
     out["jax_loaded"] = _jax_loaded()
     return out
 
@@ -425,8 +453,10 @@ def spmd_mesh_world(world, batch_case, tick_case):
     """One gloo world for tests/test_torch_parallel_mesh.py: a BatchSolver
     over a 1-D batch mesh of the world (the global batch in and out), with
     and without per-instance boxes; then, from one warm state, two MPC ticks
-    on the 1-D batch mesh (this rank's rows) and two on the 2 x 2 batch x
-    time mesh (this batch shard's rows, the KKT solve over the time axis)."""
+    on the 1-D batch mesh (this rank's rows), two on the 2 x 2 batch x time
+    mesh (this batch shard's rows, the KKT solve over the time axis) and two
+    on the 4 x 1 batch x time mesh (a time axis of one rank); each first
+    tick under CaptureHazards."""
     from ctdirect_tpu_torch.parallel import BatchSolver, MPCController, broadcast_state
     from ctdirect_tpu_torch.solver.ipm import IPMOptions
     from ctdirect_tpu_torch.solver.resolve import warm_state_from_numpy
@@ -444,16 +474,22 @@ def spmd_mesh_world(world, batch_case, tick_case):
     d = torch_docp(grid_size=tick_case["grid_size"])
     warm = warm_state_from_numpy(tick_case["warm"], "cpu")
     x0 = tick_case["x0"]
-    for key, mesh, kw in (("tick", mesh_b, dict(kkt_algorithm="cr")), ("tick_2d", mesh_2d, dict(time_axis="time"))):
+    meshes = (("tick", mesh_b, dict(kkt_algorithm="cr")), ("tick_2d", mesh_2d, dict(time_axis="time")),
+              ("tick_2d_t1", world.mesh((world.size, 1), ("batch", "time")), dict(time_axis="time")))
+    for key, mesh, kw in meshes:
         ctrl = MPCController(d, x0_boundary_rows=[0, 1], resolve_iters=tick_case["iters"], mesh=mesh,
                              device="cpu", **kw)
         rows = x0.shape[0] // ctrl.axis.size
         mine = slice(ctrl.axis.rank * rows, (ctrl.axis.rank + 1) * rows)
         states = broadcast_state(warm, rows)
-        for _ in range(tick_case["ticks"]):
-            states, u0, kkt, viol = ctrl(states, t(x0[mine]))
+        mode = CaptureHazards()
+        for k in range(tick_case["ticks"]):
+            x0_mine = t(x0[mine])
+            with mode if k == 0 else contextlib.nullcontext():
+                states, u0, kkt, viol = ctrl(states, x0_mine)
         out[key] = dict(rows=(mine.start, mine.stop), states=[n(a) for a in states], u0=n(u0), kkt=n(kkt),
-                        viol=n(viol), block_solves=ctrl.kkt.block_solves)
+                        viol=n(viol), block_solves=ctrl.kkt.block_solves, hazards=mode.where,
+                        graphed=ctrl.graphed)
     out["jax_loaded"] = _jax_loaded()
     return out
 
