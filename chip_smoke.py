@@ -137,13 +137,24 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         one more replay of (i) and (ii) runs under torch.profiler, which
         must see those launches x the plan (3 CUDA launches each; (iii)'s
         segment graphs are phase 10's kind, whose launches it profiles).
+ 15. BASELINE config 4, the orbit-transfer scenario batch, through
+     ctdirect_tpu_torch.orbit_scenarios' run and checks at full width
+     (midpoint N=500: a KKT chain of P=512, bs=11, wb=13) with ORBIT_CFG's
+     batch size and nominal KKT solve: the compiled nominal solve held to
+     the JAX package's objective; the scenario BatchSolver (kkt_mode="cr")
+     eager, first graphed call and replay, held to each other bitwise, each
+     with its kernel launches = its KKT solves (+ the warm-ups'); a profiled
+     graphed solve whose CR launches must be the KKT solves x 30; the
+     batch with its rows moved at random within their alignment classes
+     held to it bit for bit; three scenarios solved alone printed beside
+     their rows.
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
 (P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
 chain (P=256, bs=30, wb=11, B=1 and B=256, f64), and at phase 13's widest
 and longest chains (quadrotor P=256 bs=21 wb=28, orbit_transfer P=512 bs=11
-wb=15, B=1, f64); at these shapes the dense
-residual is checked on every lane. At each shape it prints the kernel's,
+wb=15, B=1, f64), at these shapes with the dense residual checked on every
+lane, and at phase 15's (P=512, bs=11, wb=13, B=2048, f64; 3 lanes). At each shape it prints the kernel's,
 the plain version's and a library call's time (torch.linalg.solve of the
 same system as one dense matrix per instance, at most LIBRARY_MAX_B of
 them), the bound (bytes or operations), the kernel's share of it, the form
@@ -214,12 +225,15 @@ P_W, BS_W, WB_W, B_W = 256, 30, 11, 256  # goddard_all GL3 at N=200 (width 41)
 # that phase 13 gives the kernel
 P_QR, BS_QR, WB_QR = 256, 21, 28
 P_OT, BS_OT, WB_OT = 512, 11, 15
+# BASELINE config 4 (phase 15): orbit_transfer midpoint N=500, the scenario batch
+P_O4, BS_O4, WB_O4, B_O4 = 512, 11, 13, 2048
 # phase 3's shapes: (dtype, P, bs, wb, B)
 PHASE3_SHAPES = [(torch.float32, P_TICK, BS_TICK, WB_TICK, B), (torch.float64, P_TICK, BS_TICK, WB_TICK, B),
                  (torch.float64, P_CP, BS_CP, WB_CP, CP_B),
                  (torch.float32, P_GD, BS_GD, WB_GD, 1), (torch.float64, P_GD, BS_GD, WB_GD, 1),
                  (torch.float64, P_W, BS_W, WB_W, 1), (torch.float64, P_W, BS_W, WB_W, B_W),
-                 (torch.float64, P_QR, BS_QR, WB_QR, 1), (torch.float64, P_OT, BS_OT, WB_OT, 1)]
+                 (torch.float64, P_QR, BS_QR, WB_QR, 1), (torch.float64, P_OT, BS_OT, WB_OT, 1),
+                 (torch.float64, P_O4, BS_O4, WB_O4, B_O4)]
 # the plain version's timing stops at 3 calls where 20 would take longer than
 # this (at the long B=1 chains): the script's time limit
 PLAIN_BUDGET_MS = 2000
@@ -348,6 +362,12 @@ SHARD_TIMED_SOLVES = 5
 # 14a's chains: the tick's and Goddard's, f64 (in phase 3's shapes)
 SHARD_CHAINS = {"tick": (P_TICK, BS_TICK, WB_TICK, B), "goddard": (P_GD, BS_GD, WB_GD, 1)}
 SHARD_TIMEOUT = 600.0
+# phase 15: BASELINE config 4 at full width (N=500: P=512, bs=11, wb=13) and
+# batch (B=2048); the nominal on the CR solve (7.9 s, the structured one
+# ~210 s) and no diagnostics (the stage split's ~125 s of profiling and
+# attribution, the alignment witness's ~120 s; the script's own run takes
+# them) keep the phase near 180 s (PERF.md)
+ORBIT_CFG = dict(N=500, B=2048, nominal_mode="cr", diagnostics=False)
 
 
 def ci_fixtures(names):
@@ -540,8 +560,10 @@ def phase_kernel_vs_plain(kernel, old=None):
         scale = max(1.0, Xp.abs().max().item(), xbp.abs().max().item())
         if not err <= TOL[dtype] * scale:
             raise AssertionError(f"kernel vs plain {dtype}: max abs err {err:.3e} > {TOL[dtype]:.0e} x {scale:.3g}")
-        if (P, bs, wb, nb) in ((P_TICK, BS_TICK, WB_TICK, B), (P_CP, BS_CP, WB_CP, CP_B)):
-            lanes, resid = "3 lanes", max(relative_residual(chain, X, xb, lane) for lane in (0, 7, nb - 1))
+        if nb >= B:  # the tick, cart-pole and config-4 batches
+            # each lane sliced on the card first (the oracle copies what it is given to the host)
+            lanes, resid = "3 lanes", max(relative_residual(tuple(x[..., [lane]] for x in chain), X[..., [lane]],
+                                                            xb[..., [lane]], 0) for lane in (0, 7, nb - 1))
         else:
             lanes, resid = f"all {nb} lanes", lane_residuals(chain, X, xb).max().item()
         if not resid < RESID_TOL[dtype]:
@@ -747,56 +769,25 @@ def ticking(tick, states, xs, ticks, want=None):
     return run
 
 
-def profiled_solve(solve, solves, per):
-    """A replayed solve under torch.profiler (profiling.kernel_events, which
-    raises unless the profiler sees the CR kernel's planned CUDA launches:
-    the block solves that `solves()` counts in the call x `per`): its wall
-    s, device busy s, CR kernel s, the CR kernel's CUDA launches seen, all
-    kernel launches seen, and the profiler's dropped records and profiles."""
-    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS, device_kernels, kernel_events
-
-    def run():
-        n0 = solves()
-        solve()
-        return (solves() - n0) * per
-
-    rec = kernel_events(run)
-    dev = device_kernels(rec["prof"])
-    cr = [e for e in dev if CR_KERNELS.search(e.key)]
-    return dict(wall=rec["wall"], busy=sum(e.self_device_time_total for e in dev) / 1e6,
-                cr=sum(e.self_device_time_total for e in cr) / 1e6, cr_launches=rec["seen"],
-                launches=sum(e.count for e in dev), dropped=rec["dropped"], tries=rec["tries"])
-
-
 def seen_note(rec):
     """What the profiler lost on the way (profiling.kernel_events)."""
     return f"; CUPTI dropped {rec['dropped']} activity records over {rec['tries']} profiles"
 
 
 def stage_split(make_ctrl, states, xs, ticks):
-    """Device ms per tick by stage of the eager tick, for a controller built
-    by make_ctrl() while these are wrapped in profiler ranges (for this run
-    only): `mpc.shift_state` (shift), the resolve's gradients and
-    vector-Jacobian products (derivatives: grad f, J^T lam), and the KKT
-    operator's prepare, _assemble, _block_solve and the rest of its solve.
-    Each kernel goes to the innermost range open on the host when it was
-    launched (on any thread: the gradients' backward launches from the
-    autograd engine's), the CR kernel's to "CR kernel" (from the kernel
-    table: its ctypes launches link to no host op), and a kernel launched
-    outside every range to "update" (x0 rows, barrier terms, residuals, the
-    step to the boundary, the state update, the exit norms). The replay runs
-    the same kernels in the same order."""
-    from torch.profiler import record_function
-
+    """Device ms per tick by stage of the eager tick (utils/profiling.py's
+    stage_split), for a controller built by make_ctrl() while these run in
+    profiler ranges (for this run only): `mpc.shift_state` (shift), the
+    resolve's gradients and vector-Jacobian products (derivatives: grad f,
+    J^T lam), and the KKT operator's prepare, _assemble, _block_solve and
+    the rest of its solve (kkt_ranges). A kernel launched outside every
+    range goes to "update" (x0 rows, barrier terms, residuals, the step to
+    the boundary, the state update, the exit norms). The replay runs the
+    same kernels in the same order."""
     from ctdirect_tpu_torch.parallel import mpc
     from ctdirect_tpu_torch.solver import resolve
-    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS, device_kernels, device_profile
-
-    def ranged(name, fn):
-        def wrapped(*args, **kw):
-            with record_function(f"stage:{name}"):
-                return fn(*args, **kw)
-        return wrapped
+    from ctdirect_tpu_torch.utils import profiling
+    from ctdirect_tpu_torch.utils.profiling import device_profile, kkt_ranges, ranged
 
     grad, vjp, shift = resolve.grad, resolve.vjp, mpc.shift_state
 
@@ -808,30 +799,11 @@ def stage_split(make_ctrl, states, xs, ticks):
     mpc.shift_state = ranged("shift", shift)
     try:
         ctrl = make_ctrl()
-        for name in ("prepare", "solve", "_assemble", "_block_solve"):
-            setattr(ctrl.kkt, name, ranged(name.lstrip("_"), getattr(ctrl.kkt, name)))
-        _, prof, _, _ = device_profile(ticking(ctrl.eager, states, xs, ticks))
+        with kkt_ranges(ctrl.kkt):
+            _, prof, _, _ = device_profile(ticking(ctrl.eager, states, xs, ticks))
     finally:
         resolve.grad, resolve.vjp, mpc.shift_state = grad, vjp, shift
-    events = prof.events()
-    ranges = sorted((e.time_range.start, e.time_range.end, e.name[len("stage:"):]) for e in events
-                    if e.name.startswith("stage:") and e.device_type.name == "CPU")
-    names = {"solve": "solve (other)", "block_solve": "block solve (casts, pad)"}
-    split = {}
-    for e in events:
-        t = e.time_range.start
-        for k in e.kernels:
-            if CR_KERNELS.search(k.name) or k.name.startswith("stage:"):
-                continue
-            inside = [r for r in ranges if r[0] <= t <= r[1]]
-            stage = names.get(max(inside)[2], max(inside)[2]) if inside else "update"
-            split[stage] = split.get(stage, 0.0) + k.duration / ticks / 1e3
-    dev = device_kernels(prof)
-    cr = sum(e.self_device_time_total for e in dev if CR_KERNELS.search(e.key)) / ticks / 1e3
-    busy = sum(e.self_device_time_total for e in dev) / ticks / 1e3
-    split["CR kernel"] = cr
-    split["not linked to a host event"] = busy - sum(split.values())
-    return split
+    return profiling.stage_split(prof, ticks, outside="update")
 
 
 def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
@@ -841,7 +813,7 @@ def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
     wrapper's counts): ITERS x the plan's launches of one solve
     (profiling.kernel_events, which raises otherwise). Then the stage split
     of the eager tick (stage_split)."""
-    from ctdirect_tpu_torch.utils.profiling import CR_KERNELS, device_kernels, kernel_events
+    from ctdirect_tpu_torch.utils.profiling import kernel_events
 
     P = P or chain_blocks(N)
     want = ITERS * grid_per_solve(P)
@@ -851,13 +823,10 @@ def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
             rec = kernel_events(ticking(tick, states, xs, ticks, want * ticks))
         except AssertionError as e:
             raise AssertionError(f"{name} {tag}, CR kernel over {ticks} ticks: {e}") from None
-        prof, wall = rec["prof"], rec["wall"] / ticks * 1e3
-        dev = device_kernels(prof)
-        busy = sum(e.self_device_time_total for e in dev) / ticks / 1e3
-        is_cr = CR_KERNELS.search
-        cr = sum(e.self_device_time_total for e in dev if is_cr(e.key)) / ticks / 1e3
+        prof, wall, totals = rec["prof"], rec["wall"] / ticks * 1e3, rec["totals"]
+        busy, cr = totals["busy"] / ticks * 1e3, totals["cr"] / ticks * 1e3
         cr_launches = rec["seen"] / ticks
-        launches = sum(e.count for e in dev) / ticks
+        launches = totals["events"] / ticks
         if not busy > 0:
             seen = sorted({e.key for e in prof.key_averages()})[:40]
             raise AssertionError(f"{name} {tag}: the profiler saw no device time; it saw {seen}")
@@ -955,29 +924,16 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
                 docp=docp, warm=warm, both=both, split=split)
 
 
-def result_diff(a, b):
-    """Max abs difference of two solves' results over every field and
-    instance (inf where their NaNs or integer fields differ)."""
-    worst = 0.0
-    for x, y in zip(a, b):
-        if not x.is_floating_point():
-            worst = max(worst, 0.0 if torch.equal(x, y) else float("inf"))
-            continue
-        if not torch.equal(torch.isnan(x), torch.isnan(y)):
-            return float("inf")
-        ok = ~torch.isnan(x)
-        worst = max(worst, (x[ok] - y[ok]).abs().max().item() if ok.any() else 0.0)
-    return worst
-
-
 def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
     """BatchSolver over per-instance x0 scenarios from the cold-start
     solution, three times: eager, the first graphed call (captures) and a
     second one (replay only); the graphed results held to the eager ones,
     then one more graphed call under torch.profiler."""
     from ctdirect_tpu_torch.parallel import BatchSolver
+    from ctdirect_tpu_torch.solver.graph import result_diff
     from ctdirect_tpu_torch.solver.interface import _get_solver
     from ctdirect_tpu_torch.solver.ipm import BatchStats
+    from ctdirect_tpu_torch.utils.profiling import profiled_solve
 
     opts = ct.IPMOptions(tol=1e-6, max_iter=30, lsq_lambda_init=False, kkt_mode="cr")
     solver = BatchSolver(docp, opts, device=device)
@@ -1083,6 +1039,8 @@ def timed_solve(kernel, fn):
 def solve_diff(a, b):
     """Max abs difference of two (IPMResult, postprocess) pairs over every
     field (inf where their NaNs or non-float fields differ)."""
+    from ctdirect_tpu_torch.solver.graph import result_diff
+
     worst = 0.0
     for x, y in zip((*a[0], *a[1]), (*b[0], *b[1])):
         if not isinstance(x, torch.Tensor):
@@ -1101,6 +1059,7 @@ def phase_goddard(ct, get_problem, kernel, kres):
     from ctdirect_tpu_torch.solver.graph import BatchGraph, graph_counters
     from ctdirect_tpu_torch.solver.interface import _get_solver
     from ctdirect_tpu_torch.solver.ipm import BatchStats
+    from ctdirect_tpu_torch.utils.profiling import profiled_solve
 
     p = get_problem("goddard")
     per = grid_per_solve(chain_blocks(GD_N))
@@ -1704,6 +1663,30 @@ def phase_nccl_graphs(warm, xs, ref_u0, gd_f64_objective):
                               ("goddard_time_sharded_nccl_graph", g))]
 
 
+def phase_orbit_scenarios(kernel):
+    """Phase 15: BASELINE config 4 through ctdirect_tpu_torch.orbit_scenarios'
+    run and checks at full width (ORBIT_CFG). Returns the batch's kernel
+    records (and the nominal's, where it runs the CR solve)."""
+    from ctdirect_tpu_torch import orbit_scenarios
+
+    cfg = dict(orbit_scenarios.DEFAULT_CFG, **ORBIT_CFG)
+    log(f"BASELINE config 4: orbit_scenarios.run at N={cfg['N']}, B={cfg['B']}, the nominal on the "
+        f"{cfg['nominal_mode']} KKT solve, no diagnostics (the script's own run: the "
+        f"{orbit_scenarios.DEFAULT_CFG['nominal_mode']} nominal, the stage split and the alignment witness; "
+        f"PERF.md)")
+    result = orbit_scenarios.report(orbit_scenarios.run(cfg), cfg, log=log)
+    per = result["grid_per_solve"]
+    names = {"eager": "batch_solve_orbit_eager", "first graphed call": "batch_solve_orbit_first_call",
+             "graphed replay": "batch_solve_orbit"}
+    paths = [path_record(names[tag], torch.float64, c["launches"], c["grid_launches"], c["launches"] * per)
+             for tag, c in result["calls"].items()]
+    nom = result["nominal"]
+    if nom["launches"]:
+        paths.append(path_record("orbit_nominal", torch.float64, nom["launches"], nom["grid_launches"],
+                                 nom["launches"] * per))
+    return paths
+
+
 def kernel_name(mangled):
     """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`."""
     m = re.match(r"_ZN(\d+)", mangled)
@@ -1824,9 +1807,11 @@ def main():
     phase_done("phase 13")
     sharded = phase_sharded(kernel, kres, main, goddard["sols"]["f64"].objective, xs)
     phase_done("phase 14")
+    orbit = phase_orbit_scenarios(kernel)
+    phase_done("phase 15")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
-             *goddard["paths"], suite, grid, fixture_ci, *sharded]
+             *goddard["paths"], suite, grid, fixture_ci, *sharded, *orbit]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))

@@ -10,6 +10,9 @@ batch sizes (parallel/batch.py), and the unbatched solve of
 `CallGraph` holds one call of a function for one input signature: the MPC
 tick (parallel/mpc.py) and the distributed CR (parallel/time_shard.py).
 
+`result_diff` measures how far a compiled solve's result is from its eager
+form's.
+
 A KKT operator whose solve exchanges messages over a mesh axis (`kkt.axis`,
 parallel/time_shard.py) can sit in a graph only over NCCL, which carries
 CUDA tensors from card to card; gloo stages them through the host, which no
@@ -69,6 +72,22 @@ def _no_collector():
     finally:
         if collecting:
             gc.enable()
+
+
+def result_diff(a, b) -> float:
+    """Max abs difference of two solves' results (sequences of tensors, such
+    as two IPMResults) over every field and instance: inf where their NaNs
+    or integer fields differ."""
+    worst = 0.0
+    for x, y in zip(a, b):
+        if not x.is_floating_point():
+            worst = max(worst, 0.0 if torch.equal(x, y) else float("inf"))
+            continue
+        if not torch.equal(torch.isnan(x), torch.isnan(y)):
+            return float("inf")
+        ok = ~torch.isnan(x)
+        worst = max(worst, (x[ok] - y[ok]).abs().max().item() if ok.any() else 0.0)
+    return worst
 
 
 class CallGraph:

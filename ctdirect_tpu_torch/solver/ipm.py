@@ -55,8 +55,9 @@ from ctdirect_tpu_torch.solver.kkt import DenseKKT
 
 @dataclass(frozen=True)
 class IPMOptions:
-    """Solver options (defaults chosen to match Ipopt's; the JAX package's
-    IPMOptions minus its three fields that no code reads)."""
+    """Solver options (defaults chosen to match Ipopt's), field for field the
+    JAX package's IPMOptions. `eta_ls`, `delta_w_max` and `max_soc` are
+    accepted and read by no code, as in the JAX package."""
 
     tol: float = 1e-8
     acceptable_tol: float = 1e-6  # Ipopt Solved_To_Acceptable_Level fallback
@@ -73,9 +74,11 @@ class IPMOptions:
     tau_min: float = 0.99  # fraction-to-boundary minimum
     max_iter: int = 200
     max_ls: int = 25  # backtracking steps
+    eta_ls: float = 1e-4  # Armijo constant (unread)
     s_max: float = 100.0  # KKT error scaling threshold (Ipopt s_max)
     kappa_push: float = 1e-2  # initial-point push from bounds
     delta_w_init: float = 1e-8
+    delta_w_max: float = 1e20  # (unread)
     delta_c: float = 1e-8  # constraint-block regularization
     max_reg_trials: int = 20
     curvature_frac: float = 1e-11  # inertia-free test threshold (Chiang-Zavala)
@@ -107,6 +110,7 @@ class IPMOptions:
     s_phi: float = 2.3
     eta_phi: float = 1e-8  # Armijo constant for f-type steps
     kappa_soc: float = 0.99  # SOC acceptance: theta_soc <= kappa_soc * theta
+    max_soc: int = 3  # second-order correction rounds (unread)
     debug: bool = False  # print one line of line-search diagnostics per iteration
 
     def replace(self, **kw):

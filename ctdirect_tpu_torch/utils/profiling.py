@@ -2,7 +2,9 @@
 `ctdirect_tpu.utils.profiling`): wall-clock timing with device
 synchronization, and `torch.profiler` tracing into a Chrome trace; on a
 card, a profile that counts the CUDA kernels it saw and the activity
-records CUPTI dropped (`kernel_events`)."""
+records CUPTI dropped (`kernel_events`, `profiled_solve`), and the device
+time of a profiled run split by the stages that were open on the host when
+each kernel was launched (`ranged`, `kkt_ranges`, `stage_split`)."""
 
 from __future__ import annotations
 
@@ -27,6 +29,11 @@ CR_KERNELS = re.compile(r"\b(up_odd|up_even|root_solve|down|transpose_kernel)<")
 _DROPPED = re.compile(rb"Dropped (\d+) activity records")
 # kernel_events' profiles of one call at most (a profile that lost records is taken again)
 PROFILE_TRIES = 3
+# the prefix of the profiler ranges that `ranged` opens and `stage_split` reads
+STAGE = "stage:"
+# the KKT operator's methods that `kkt_ranges` wraps, and the stage each is reported as
+KKT_STAGES = {"prepare": "prepare", "solve": "solve (other)", "_assemble": "assemble",
+              "_block_solve": "block solve (casts, pad)"}
 
 
 @dataclass
@@ -166,11 +173,35 @@ def dropped_records(err: bytes) -> int:
     return sum(int(n) for n in _DROPPED.findall(err))
 
 
-def device_kernels(prof) -> list:
-    """The profile's CUDA kernels (its key averages with device time, not
-    the device-side spans of profiler ranges named `stage:...`)."""
-    return [e for e in prof.key_averages() if e.device_type.name == "CUDA" and e.self_device_time_total > 0
-            and not e.key.startswith("stage:")]
+def _raw_events(prof):
+    """(device events as (name, ns, linked host op), host ops' start ns by
+    correlation id, stage ranges as (start ns, end ns, stage)) of a profile,
+    read from the profiler's raw events: its parsed tree (`key_averages`,
+    `events`) takes minutes to build for a run of ~10^5 kernels or ~10^6
+    ops. Device names are demangled as the profiler's tables show them;
+    user annotations (the ranges' device spans) are no device events."""
+    device, op_start, ranges, names = [], {}, [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type().name == "CPU":
+            if name.startswith(STAGE):
+                ranges.append((e.start_ns(), e.end_ns(), name[len(STAGE):]))
+            elif e.linked_correlation_id() == 0:
+                op_start[e.correlation_id()] = e.start_ns()
+        elif not (e.is_user_annotation() or name.startswith(STAGE)):
+            if name not in names:
+                names[name] = torch._C._demangle(name)
+            device.append((names[name], e.duration_ns(), e.linked_correlation_id()))
+    return device, op_start, ranges
+
+
+def device_totals(prof) -> dict:
+    """A profile's device busy s, CR kernel s and CUDA launches (events) of
+    the CR kernel (CR_KERNELS) and of all device work."""
+    device, _, _ = _raw_events(prof)
+    cr = [ns for name, ns, _ in device if CR_KERNELS.search(name)]
+    return dict(busy=sum(ns for _, ns, _ in device) / 1e9, cr=sum(cr) / 1e9, cr_events=len(cr),
+                events=len(device))
 
 
 def kernel_events(fn) -> dict:
@@ -180,15 +211,103 @@ def kernel_events(fn) -> dict:
     dropped records cannot count them: it is taken again, PROFILE_TRIES
     profiles at most. Raises AssertionError on a count that differs with
     nothing dropped, or when every profile dropped records. Returns prof,
-    wall, want, seen, dropped (summed over the profiles) and tries."""
+    wall, the profile's `device_totals`, want, seen, dropped (summed over
+    the profiles) and tries."""
     dropped = 0
     for k in range(1, PROFILE_TRIES + 1):
         want, prof, wall, lost = device_profile(fn)
-        seen = sum(e.count for e in device_kernels(prof) if CR_KERNELS.search(e.key))
+        totals = device_totals(prof)
+        seen = totals["cr_events"]
         dropped += lost
         if seen == want or not lost:
             break
     if seen != want:
         raise AssertionError(f"{seen} kernel events in the profile, planned {want} ({k} profiles, {dropped} "
                              f"activity records dropped)")
-    return dict(prof=prof, wall=wall, want=want, seen=seen, dropped=dropped, tries=k)
+    return dict(prof=prof, wall=wall, totals=totals, want=want, seen=seen, dropped=dropped, tries=k)
+
+
+def profiled_solve(solve, solves, per) -> dict:
+    """A solve under torch.profiler (`kernel_events`, which raises unless
+    the profiler sees the CR kernel's planned CUDA launches: the block
+    solves that `solves()` counts in the call x `per`, the CUDA launches of
+    one): its wall s, device busy s, CR kernel s, the CR kernel's CUDA
+    launches seen, all kernel launches seen, and the profiler's dropped
+    records and profiles."""
+    def run():
+        n0 = solves()
+        solve()
+        return (solves() - n0) * per
+
+    rec = kernel_events(run)
+    t = rec["totals"]
+    return dict(wall=rec["wall"], busy=t["busy"], cr=t["cr"], cr_launches=rec["seen"], launches=t["events"],
+                dropped=rec["dropped"], tries=rec["tries"])
+
+
+def ranged(stage: str, fn: Callable) -> Callable:
+    """fn, each call of it inside a profiler range named STAGE + stage."""
+    from torch.profiler import record_function
+
+    def wrapped(*args, **kw):
+        with record_function(STAGE + stage):
+            return fn(*args, **kw)
+    return wrapped
+
+
+@contextlib.contextmanager
+def kkt_ranges(kkt):
+    """Over the block, the KKT operator's methods of KKT_STAGES run inside
+    profiler ranges (`ranged`, set on the instance and taken off after).
+    A segment graph captured before keeps the kernels it holds."""
+    own = {name: vars(kkt)[name] for name in KKT_STAGES if name in vars(kkt)}
+    for name, stage in KKT_STAGES.items():
+        setattr(kkt, name, ranged(stage, getattr(kkt, name)))
+    try:
+        yield kkt
+    finally:
+        for name in KKT_STAGES:
+            if name in own:
+                setattr(kkt, name, own[name])
+            else:
+                delattr(kkt, name)
+
+
+def stage_split(prof, calls: int, outside: str) -> Dict[str, float]:
+    """Device ms per call by stage of a profile (`device_profile`) of
+    `calls` calls run with stage ranges open (`ranged`). Each device event
+    goes to the innermost range open on the host when the op that launched
+    it started (on any thread: the gradients' backward launches from the
+    autograd engine's), the CR kernel's to "CR kernel" (from the kernel
+    table: its ctypes launches link to no host op), and one launched outside
+    every range to `outside`; device time that links to no host op is "not
+    linked to a host event" (`_raw_events`)."""
+    import bisect
+
+    device, op_start, ranges = _raw_events(prof)
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    # parent[i]: the innermost range that holds range i's start (the ranges nest)
+    parent, open_ = [], []
+    for i, (start, end, _) in enumerate(ranges):
+        while open_ and ranges[open_[-1]][1] < start:
+            open_.pop()
+        parent.append(open_[-1] if open_ else -1)
+        open_.append(i)
+
+    def stage_at(t):
+        i = bisect.bisect_right(starts, t) - 1
+        while i >= 0 and ranges[i][1] < t:
+            i = parent[i]
+        return ranges[i][2] if i >= 0 else outside
+
+    split = {}
+    for name, ns, op in device:
+        if CR_KERNELS.search(name):
+            stage = "CR kernel"
+        elif op in op_start:
+            stage = stage_at(op_start[op])
+        else:
+            stage = "not linked to a host event"
+        split[stage] = split.get(stage, 0.0) + ns / calls / 1e6
+    return split

@@ -107,3 +107,18 @@ def test_batched_adaptive_mu_and_max_iter_zero():
     res0 = BatchSolver(d, opts.replace(max_iter=0), device="cpu")(z0, cl, cu, zl, zu)
     assert n(res0.status).tolist() == [0] * len(z0) and n(res0.iterations).tolist() == [0] * len(z0)
     np.testing.assert_allclose(n(res0.z), np.clip(z0, zl, zu), rtol=0, atol=1e-6)
+
+
+def test_options_have_the_jax_fields_in_order_with_their_defaults():
+    """The port's IPMOptions is field for field the JAX package's, the three
+    that no code of either package reads (eta_ls, delta_w_max, max_soc)
+    included, so a script that sets one runs on both."""
+    import dataclasses
+
+    from ctdirect_tpu.solver.ipm import IPMOptions as OptsJ
+    from ctdirect_tpu_torch.solver.ipm import IPMOptions as OptsT
+
+    fields = lambda cls: [(f.name, f.default) for f in dataclasses.fields(cls)]  # noqa: E731
+    assert fields(OptsT) == fields(OptsJ)
+    opts = OptsT(eta_ls=1e-3, delta_w_max=1e10, max_soc=0)
+    assert (opts.eta_ls, opts.delta_w_max, opts.max_soc) == (1e-3, 1e10, 0)

@@ -78,6 +78,20 @@ def test_dropped_records_are_read_off_stderr():
     assert (after.st_dev, after.st_ino) == (before.st_dev, before.st_ino)
 
 
+def _event(name, device, start, end, corr=0, linked=0):
+    """A raw profiler event (the methods of torch's _KinetoEvent that
+    stage_split reads)."""
+    return SimpleNamespace(name=lambda: name, device_type=lambda: SimpleNamespace(name=device),
+                           start_ns=lambda: start, end_ns=lambda: end, duration_ns=lambda: end - start,
+                           correlation_id=lambda: corr, linked_correlation_id=lambda: linked,
+                           is_user_annotation=lambda: device == "CUDA" and name.startswith(profiling.STAGE))
+
+
+def _profile(events):
+    """A profile whose raw events are `events`."""
+    return SimpleNamespace(profiler=SimpleNamespace(kineto_results=SimpleNamespace(events=lambda: events)))
+
+
 # (CR kernel events seen, records dropped) per profile, and what kernel_events does
 PROFILES = {
     "exact": ([(27, 0)], dict(tries=1, dropped=0)),
@@ -97,12 +111,11 @@ def test_kernel_events_profiles_again_only_where_records_were_dropped(monkeypatc
     def fake_profile(fn):
         seen, lost = readings[len(taken)]
         taken.append(seen)
-        events = [SimpleNamespace(key="void up_odd<double>(double*)", count=seen),
-                  SimpleNamespace(key="void elementwise_kernel<128, 4>()", count=100)]
-        return fn(), events, 0.5, lost
+        events = [_event("void up_odd<double>(double*)", "CUDA", 0, 1)] * seen
+        events += [_event("void elementwise_kernel<128, 4>()", "CUDA", 0, 1)] * 100
+        return fn(), _profile(events), 0.5, lost
 
     monkeypatch.setattr(profiling, "device_profile", fake_profile)
-    monkeypatch.setattr(profiling, "device_kernels", lambda prof: prof)
     if isinstance(expect, str):
         with pytest.raises(AssertionError, match=expect.replace("(", r"\(")):
             profiling.kernel_events(lambda: 27)
@@ -110,6 +123,53 @@ def test_kernel_events_profiles_again_only_where_records_were_dropped(monkeypatc
     else:
         rec = profiling.kernel_events(lambda: 27)
         assert (rec["seen"], rec["want"], rec["tries"], rec["dropped"]) == (27, 27, expect["tries"], expect["dropped"])
+        assert rec["totals"] == dict(busy=127e-9, cr=27e-9, cr_events=27, events=127)
+
+
+def test_kkt_ranges_wrap_the_operator_for_the_block_only():
+    """kkt_ranges puts each KKT_STAGES method of one operator in a profiler
+    range named after its stage over the block and takes it off after; the
+    results are the method's."""
+    from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
+
+    d = ct.transcribe(get_problem("double_integrator_minenergy").ocp, grid_size=4, scheme="trapeze", device="cpu")
+    kkt = StructuredKKT(d, algorithm="cr")
+    z = d.tensor(d.initial_guess())
+    lam = torch.zeros(d._c_lb.shape[0], dtype=torch.float64)
+    one = torch.ones((), dtype=torch.float64)
+    plain = kkt.prepare(z, lam, one, torch.ones_like(lam))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with profiling.kkt_ranges(kkt) as ranged:
+            assert ranged is kkt and set(profiling.KKT_STAGES) <= set(vars(kkt))
+            inside = kkt.prepare(z, lam, one, torch.ones_like(lam))
+    assert not set(profiling.KKT_STAGES) & set(vars(kkt))
+    assert all(torch.equal(a, b) for a, b in zip(torch.utils._pytree.tree_leaves(plain),
+                                                 torch.utils._pytree.tree_leaves(inside)))
+    names = {e.name for e in prof.events()}
+    assert profiling.STAGE + "prepare" in names and profiling.STAGE + "assemble" not in names
+    assert profiling.stage_split(prof, 1, outside="rest") == {}  # the raw events of a CPU profile: no device time
+
+
+def test_stage_split_gives_each_kernel_to_the_innermost_open_range():
+    """stage_split's attribution on a made-up profile: nested ranges, a
+    kernel launched after an inner range closed (its outer range's), one
+    outside every range, the CR kernel's (by name, linked to no op), a
+    kernel linked to no op and a range's own device span (ignored); ms per
+    call over 2 calls."""
+    S = profiling.STAGE
+    ops = [(S + "prepare", 0, 100), (S + "assemble", 10, 20), (S + "solve (other)", 200, 300),
+           (S + "block solve (casts, pad)", 210, 220)]
+    launches = [("aten::mul", 5, "mul_kernel", 1), ("aten::add", 15, "add_kernel", 2),
+                ("aten::sub", 50, "sub_kernel", 4), ("aten::div", 150, "div_kernel", 8),
+                ("aten::copy_", 215, "copy_kernel", 16), ("aten::neg", 250, "neg_kernel", 32)]
+    events = [_event(name, "CPU", a, b) for name, a, b in ops]
+    events += [_event(S + "prepare", "CUDA", 0, 10**9)]
+    for k, (op, t, kernel, ms) in enumerate(launches, start=1):
+        events += [_event(op, "CPU", t, t + 1, corr=k), _event(kernel, "CUDA", 0, 2 * ms * 10**6, linked=k)]
+    events += [_event("up_odd<double>", "CUDA", 0, 7 * 10**6), _event("memset_kernel", "CUDA", 0, 64 * 10**6, linked=99)]
+    split = profiling.stage_split(_profile(events), 2, outside="rest")
+    assert split == {"prepare": 5.0, "assemble": 2.0, "rest": 8.0, "block solve (casts, pad)": 16.0,
+                     "solve (other)": 32.0, "CR kernel": 3.5, "not linked to a host event": 32.0}
 
 
 def test_plot_solution_draws_state_control_costate(tmp_path):

@@ -250,14 +250,20 @@ def batch_inputs(d, init, seed, box_scale=None):
 CASES = {
     "cartpole": dict(name="cartpole", grid_size=12, box_scale=[1.0, 0.8, 1.25]),
     "double_integrator": dict(name=DI, grid_size=12, box_scale=None),
+    # BASELINE config 4 cut to N=40 (tests/test_torch_orbit_scenarios.py gives its inputs)
+    "orbit_transfer": dict(name="orbit_transfer", grid_size=40, box_scale=None),
 }
 
 
-def check_batch_solver_matches_jax(case, **options):
+def check_batch_solver_matches_jax(case, scheme="trapeze", inputs=None, dense=False, **options):
     """The port's BatchSolver against the JAX BatchSolver (both given the
-    cyclic-reduction StructuredKKT) on one of CASES, with `options` beside
-    tol 1e-8 and 60 iterations at most: same status and iterations per
-    instance, objective to 1e-8 relative, z to 1e-8 absolute."""
+    cyclic-reduction StructuredKKT; with `dense`, both the dense KKT solve,
+    which the JAX BatchSolver runs for kkt_mode="cr") on one of CASES
+    transcribed with `scheme`, with `options` over tol 1e-8 and 60
+    iterations at most: same status and iterations per instance, objective
+    to 1e-8 relative, z to 1e-8 absolute. The instances are
+    `inputs(jax_docp)` -> (z0, cl, cu, zl, zu) where given, else BATCH of
+    `batch_inputs`, which must all converge."""
     import jax.numpy as jnp
 
     from ctdirect_tpu import transcribe as transcribe_j
@@ -272,24 +278,30 @@ def check_batch_solver_matches_jax(case, **options):
     from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT as ST
 
     c = CASES[case]
-    dj = transcribe_j(problem_j(c["name"]).ocp, grid_size=c["grid_size"], scheme="trapeze")
-    dt = transcribe_t(problem_t(c["name"]).ocp, grid_size=c["grid_size"], scheme="trapeze",
-                      device="cpu")
+    dj = transcribe_j(problem_j(c["name"]).ocp, grid_size=c["grid_size"], scheme=scheme)
+    dt = transcribe_t(problem_t(c["name"]).ocp, grid_size=c["grid_size"], scheme=scheme, device="cpu")
     np.testing.assert_array_equal(dt.control_col_indices(), dj.control_col_indices())
-    z0, cl, cu, zl, zu = batch_inputs(dj, problem_j(c["name"]).init, seed=1,
-                                      box_scale=c["box_scale"])
-    opts = dict(tol=1e-8, max_iter=60, **options)
-    rj = BatchJ(dj, OptsJ(**opts), kkt=SJ(dj, algorithm="cr"))(
-        *(jnp.asarray(a) for a in (z0, cl, cu, zl, zu))
-    )
-    rt = BatchT(dt, OptsT(**opts), kkt=ST(dt, algorithm="cr"), device="cpu")(z0, cl, cu, zl, zu)
+    if inputs is None:
+        z0, cl, cu, zl, zu = batch_inputs(dj, problem_j(c["name"]).init, seed=1, box_scale=c["box_scale"])
+    else:
+        z0, cl, cu, zl, zu = inputs(dj)
+    opts = {**dict(tol=1e-8, max_iter=60), **options}
+    if dense:
+        bj = BatchJ(dj, OptsJ(**opts, kkt_mode="cr"))
+        bt = BatchT(dt, OptsT(**opts, kkt_mode="dense"), device="cpu")
+    else:
+        bj = BatchJ(dj, OptsJ(**opts), kkt=SJ(dj, algorithm="cr"))
+        bt = BatchT(dt, OptsT(**opts), kkt=ST(dt, algorithm="cr"), device="cpu")
+    rj = bj(*(jnp.asarray(a) for a in (z0, cl, cu, zl, zu)))
+    rt = bt(z0, cl, cu, zl, zu)
     np.testing.assert_array_equal(n(rt.status), np.asarray(rj.status))
     np.testing.assert_array_equal(n(rt.iterations), np.asarray(rj.iterations))
-    assert n(rt.successful).all()
+    if inputs is None:
+        assert n(rt.successful).all()
     np.testing.assert_allclose(n(rt.objective), np.asarray(rj.objective), rtol=1e-8)
     np.testing.assert_allclose(n(rt.z), np.asarray(rj.z), rtol=0, atol=1e-8)
     for field in rt._fields:  # a leading batch axis on every field
-        assert n(getattr(rt, field)).shape[0] == BATCH, field
+        assert n(getattr(rt, field)).shape[0] == len(z0), field
 
 
 # ---- a tiny NLP whose first dense KKT system is exactly singular
