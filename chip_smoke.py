@@ -73,12 +73,14 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      which this script sets) and takes a profile that dropped records again,
      3 profiles at most; a count that differs with nothing dropped fails;
  11. the 10-problem suite (benchmarks/sweep.py's EASY_SET) at N=250 trapeze
-     under the sweep's options (f32 block solve, refinement, Ruiz, its
-     per-problem overrides; jackson with one more refinement sweep), each a
+     through ctdirect_tpu_torch.sweep's run_sweep and checks, unprofiled:
+     the sweep's options (f32 block solve, refinement, Ruiz, its
+     per-problem overrides), each a
      compiled solve as ct.solve runs it (first call: captures), then a
      replay on the same DOCP (the first call's overhead is the difference):
-     every problem ok by the sweep's rule and its objective within
-     SUITE_JAX_RTOL of the JAX package's on the CPU;
+     every problem ok by the sweep's rule, the replay bitwise the first
+     call, launches = block solves (+ the warm-ups'), and its objective
+     within the sweep's SUITE_JAX_RTOL of the JAX package's on the CPU;
  12. grid_continuation(goddard, grids (50, 100), GL2 constant control) with
      phase 10's f32 options, compiled: the final stage successful and within
      1e-6 of the JAX package's final objective with the same grids on the CPU;
@@ -147,17 +149,29 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      graphed solve whose CR launches must be the KKT solves x 30; the
      batch with its rows moved at random within their alignment classes
      held to it bit for bit; three scenarios solved alone printed beside
-     their rows.
+     their rows;
+ 16. a cut of the suite ladder through ctdirect_tpu_torch.sweep's
+     run_sweep and checks (LADDER_CUT: the 10 problems at N=1000 and
+     goddard_all at N=5000 with its per-cell refine 3, a chain of P=8,192
+     blocks), with phase 11's checks and, once per rung, a profiled replay
+     of goddard_all that must see every planned CUDA launch of the CR
+     kernel (its busy, idle and CR shares and its idle by segment printed);
+     the ladder table against Ipopt's totals.
+Each phase's wall is printed after it.
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
 (P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
 chain (P=256, bs=30, wb=11, B=1 and B=256, f64), and at phase 13's widest
 and longest chains (quadrotor P=256 bs=21 wb=28, orbit_transfer P=512 bs=11
 wb=15, B=1, f64), at these shapes with the dense residual checked on every
-lane, and at phase 15's (P=512, bs=11, wb=13, B=2048, f64; 3 lanes). At each shape it prints the kernel's,
+lane, at phase 15's (P=512, bs=11, wb=13, B=2048, f64; 3 lanes), and at
+the suite ladder's longest chains (goddard_all trapeze, bs=10, wb=12, B=1:
+N=5000 gives P=8,192 and N=10,000 P=16,384; f32 and f64). At each shape it prints the kernel's,
 the plain version's and a library call's time (torch.linalg.solve of the
 same system as one dense matrix per instance, at most LIBRARY_MAX_B of
-them), the bound (bytes or operations), the kernel's share of it, the form
+them; where they would pass LIBRARY_MAX_BYTES, of the chain's first
+blocks, the most of a power of two that keeps them within), the bound
+(bytes or operations), the kernel's share of it, the form
 that ran, the CUDA launches of one solve and the device memory free across
 the first launch; then the launch floor of one solve at P=256. Phase 2
 prints ptxas's registers, stack frame and spills per kernel and fails on a
@@ -198,6 +212,8 @@ os.environ.setdefault("KINETO_LOG_LEVEL", "2")
 import numpy as np
 import torch
 
+from ctdirect_tpu_torch.sweep import SUITE, chain_blocks
+
 B, N, ITERS = 512, 100, 3
 P_TICK, BS_TICK, WB_TICK = 128, 5, 7
 WARMUP_TICKS, TIMED_TICKS = 2, 30
@@ -227,19 +243,28 @@ P_QR, BS_QR, WB_QR = 256, 21, 28
 P_OT, BS_OT, WB_OT = 512, 11, 15
 # BASELINE config 4 (phase 15): orbit_transfer midpoint N=500, the scenario batch
 P_O4, BS_O4, WB_O4, B_O4 = 512, 11, 13, 2048
+# the suite ladder's widest chain (goddard_all trapeze) at its longest: N=5000
+# (phase 16) and N=10,000 (the sweep's --large)
+BS_L, WB_L = 10, 12
+P_L5, P_L10 = 8192, 16384
 # phase 3's shapes: (dtype, P, bs, wb, B)
 PHASE3_SHAPES = [(torch.float32, P_TICK, BS_TICK, WB_TICK, B), (torch.float64, P_TICK, BS_TICK, WB_TICK, B),
                  (torch.float64, P_CP, BS_CP, WB_CP, CP_B),
                  (torch.float32, P_GD, BS_GD, WB_GD, 1), (torch.float64, P_GD, BS_GD, WB_GD, 1),
                  (torch.float64, P_W, BS_W, WB_W, 1), (torch.float64, P_W, BS_W, WB_W, B_W),
                  (torch.float64, P_QR, BS_QR, WB_QR, 1), (torch.float64, P_OT, BS_OT, WB_OT, 1),
-                 (torch.float64, P_O4, BS_O4, WB_O4, B_O4)]
+                 (torch.float64, P_O4, BS_O4, WB_O4, B_O4),
+                 *((dt, p, BS_L, WB_L, 1) for p in (P_L5, P_L10) for dt in (torch.float32, torch.float64))]
 # the plain version's timing stops at 3 calls where 20 would take longer than
 # this (at the long B=1 chains): the script's time limit
 PLAIN_BUDGET_MS = 2000
 # the library yardstick solves at most this many dense systems (goddard_all at
 # B=256 would be 121 GB of f64 matrices)
 LIBRARY_MAX_B = 16
+# and dense matrices of at most this many bytes in all (a ladder chain of
+# P=8,192 blocks is a 54 GB f64 matrix, and its LU works on a copy): beyond
+# it, the chain's first P' blocks, P' the largest power of two within it
+LIBRARY_MAX_BYTES = 16e9
 # NVIDIA's H100 SXM data sheet: the HBM3 rate; 67 TFLOP/s is its f32 rate outside
 # the tensor cores and its f64 rate on them (DMMA, which the small matrix
 # products of the reduction could use)
@@ -252,46 +277,12 @@ MAX_STACK_BYTES = 1024
 # (both stages status 0, 63 + 56 iterations)
 GC_GRIDS = (50, 100)
 GC_JAX_CPU = 1.0125757548902092
-# the 10-problem suite: benchmarks/sweep.py:33-44 (EASY_SET), its base options
-# (:77-83, the CLI defaults tol 1e-6, max-iter 500, kkt cr, solve-dtype f32)
-# and its per-problem overrides, copied from benchmarks/sweep.py:62-68 (applied
-# at :85-96)
+# the 10-problem suite (phase 11) and its cut of the ladder (phase 16):
+# ctdirect_tpu_torch/sweep.py keeps the data (benchmarks/sweep.py's suite,
+# options and overrides, the JAX package's objectives on the CPU and the
+# bounds on them)
 SUITE_N = 250
-SUITE = ("beam", "double_integrator_mintf", "double_integrator_minenergy", "double_integrator_freet0tf",
-         "fuller", "goddard", "goddard_all", "jackson", "simple_integrator", "vanderpol")
-SUITE_OPTS = dict(tol=1e-6, max_iter=500, kkt_mode="cr", kkt_solve_dtype="f32")
-SUITE_OVERRIDES = {
-    "jackson": dict(mu_strategy="adaptive", kkt_equilibrate=False),
-    "goddard": dict(mu_strategy="adaptive"),
-}
-# the JAX package's objectives under the same options on the CPU
-# (`python benchmarks/sweep.py --cpu --grids 250 --json`, float64; all 10 ok)
-SUITE_JAX_CPU = {
-    "beam": 8.890454341721773,
-    "double_integrator_mintf": 2.0000334566746583,
-    "double_integrator_minenergy": 11.99919130246911,
-    "double_integrator_freet0tf": 7.999966655022197,
-    "fuller": 0.26839972697315734,
-    "goddard": 1.0125715716060357,
-    "goddard_all": 1.0125750148649217,
-    "jackson": 0.19184462300509758,
-    "simple_integrator": 0.31303644382930285,
-    "vanderpol": 1.047825431959713,
-}
-# On the H100 the sweep's jackson options stall (status 2 after 298
-# iterations, objective 6 % off, the same with the one-thread-per-instance
-# kernel and with the level-parallel one; PERF.md): its f32
-# solve without Ruiz is rounding-fragile, as the sweep's own note says
-# (benchmarks/sweep.py:57-61). One more refinement sweep converges it, after
-# the sweep's per-cell override for goddard_all N=5000 (:69-73, --refine 3).
-SUITE_CARD_OVERRIDES = {"jackson": dict(kkt_refine=3)}
-# Objective tolerance against the JAX CPU objectives: the solve stops at a
-# KKT error of 1e-6, and the port on the CPU lands within 1.8e-9 of them on
-# all but jackson (1.4e-7). jackson's bang-bang objective spreads by up to
-# 2.7e-6 across block-solve variants that all converge (CPU and card runs,
-# PERF.md), so it gets 1e-5.
-SUITE_JAX_RTOL = {"jackson": 1e-5}
-SUITE_JAX_RTOL_DEFAULT = 1e-6
+LADDER_CUT = [*((name, 1000) for name in SUITE), ("goddard_all", 5000)]
 
 
 # phase 13, the fixture CI on the card: a copy of the JAX package's CI recipe
@@ -343,7 +334,7 @@ CI_TRACED = "bolza_freetf"  # solved under utils.profiling.trace
 CI_WORKERS = 3
 CI_LONGEST_FIRST = ("orbit_transfer", "algal_bacterial", "quadrotor", "space_shuttle", "swimmer", "swimmer2",
                     "bioreactor_Ndays", "action", "moonlander", "truck_trailer")
-# Card overrides of kkt_mode="cr": these two run the JAX CI's own structured
+# Card overrides of kkt_mode="cr": these run the JAX CI's own structured
 # (scan) block solve, whose KKT solves are plain PyTorch, not the kernel. The
 # recipe does not hold under "cr" in the reference either, or holds only by
 # rounding luck (tools/ci_override_witness.py; PERF.md, ROADMAP.md queue 3):
@@ -351,8 +342,14 @@ CI_LONGEST_FIRST = ("orbit_transfer", "algal_bacterial", "quadrotor", "space_shu
 # passes or fails with a few-ulp change of its tf guess in the JAX package
 # under either KKT solve, as in the port, whose "cr" kernel path fails the
 # unperturbed draw on the card (its residuals no worse than the plain
-# version's) and whose structured path passes it.
-CI_CARD_OVERRIDES = {"quadrotor": dict(kkt_mode="structured"), "space_shuttle": dict(kkt_mode="structured")}
+# version's) and whose structured path passes it; algal_bacterial's and
+# orbit_transfer's pass in the JAX package from the fixture's own guess and
+# fail there with every entry of that guess moved by one or two ulps
+# (algal_bacterial: status 2 at N=200 at +1, -1, +2 and -2 ulps;
+# orbit_transfer: 2,000 iterations in each stage at +1 ulp), as they fail
+# under "cr" on the card.
+CI_CARD_OVERRIDES = {name: dict(kkt_mode="structured")
+                     for name in ("quadrotor", "space_shuttle", "orbit_transfer", "algal_bacterial")}
 
 
 # phase 14: one gloo world of this many processes on the one card
@@ -456,11 +453,6 @@ def old_kernel(source):
         return X, xb
 
     return solve
-
-
-def chain_blocks(N):
-    """A DOCP of N steps gives a KKT chain of N blocks, padded to a power of two."""
-    return 1 << (N - 1).bit_length()
 
 
 def bound(dtype, P, bs, wb, nb):
@@ -572,18 +564,28 @@ def phase_kernel_vs_plain(kernel, old=None):
         split = launch_split(kernel, chain)
         plain_ms = median_ms(lambda: cr_solve_lanes(*chain), budget_ms=PLAIN_BUDGET_MS)
         n = P * bs + wb
-        lib_b = nb if nb * n * n * itemsize <= 8e9 else LIBRARY_MAX_B
-        K, rhs = dense_system(chain, lib_b)
-        lib_err = (torch.linalg.solve(K, rhs)[:, : P * bs, 0] - Xp[..., :lib_b].movedim(-1, 0).reshape(lib_b, -1))
-        library_ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5)
+        lib_b = nb if nb * n * n * itemsize <= 8e9 else min(nb, LIBRARY_MAX_B)
+        lib_p = P
+        while lib_b * (lib_p * bs + wb) ** 2 * itemsize > LIBRARY_MAX_BYTES:
+            lib_p //= 2
+        lib_n = lib_p * bs + wb
+        # the chain's first lib_p blocks (F and rb, chain[3] and chain[5], have no block axis)
+        K, rhs = dense_system(tuple(x if i in (3, 5) else x[:lib_p] for i, x in enumerate(chain)), lib_b)
+        if lib_p == P:
+            lib_err = (torch.linalg.solve(K, rhs)[:, : P * bs, 0]
+                       - Xp[..., :lib_b].movedim(-1, 0).reshape(lib_b, -1)).abs().max().item()
+            lib_note = f"max diff to plain {lib_err:.2e}"
+        else:
+            lib_note = f"the chain's first {lib_p} blocks: {n}^2 would pass {LIBRARY_MAX_BYTES / 1e9:g} GB"
+        library_ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5 if lib_p == P else 3)
         del K, rhs
         bound_ms, bound_by, nbytes, flops = bound(dtype, P, bs, wb, nb)
         wpb = plan[1][2] // 32
         form = f"level-parallel, {wpb} warp(s) per block at the first level"
         log(f"CR kernel {dtype} at P={P} bs={bs} wb={wb} B={nb}: max abs err {err:.3e} vs plain, dense "
             f"residual {resid:.3e} ({lanes}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
-            f"torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={n}, max diff to plain "
-            f"{lib_err.abs().max().item():.2e}) (CUDA events, median of 20 / 3-20 / 5); bound {1e3 * bound_ms:.3f} us "
+            f"torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={lib_n}, {lib_note}) (CUDA events, median of "
+            f"20 / 3-20 / 5 or 3); bound {1e3 * bound_ms:.3f} us "
             f"set by {bound_by} ({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), kernel at "
             f"{100 * bound_ms / ms:.3f}% of it; form: {form}; {grid} CUDA launches per solve; device memory "
             f"free {free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of {total / 2**30:.2f} across the first "
@@ -592,7 +594,7 @@ def phase_kernel_vs_plain(kernel, old=None):
             + f" (sum {sum(split.values()):.4f})")
         results.append(dict(dtype=str(dtype).replace("torch.", ""), P=P, bs=bs, wb=wb, B=nb, form=form,
                             grid_launches_per_solve=grid, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            library_ms=library_ms, library_B=lib_b, bound_us=1e3 * bound_ms, bound_by=bound_by,
+                            library_ms=library_ms, library_B=lib_b, library_P=lib_p, bound_us=1e3 * bound_ms, bound_by=bound_by,
                             mem_outside_allocator_mib=outside / 2**20, device_ms_by_kernel=split))
         if old is not None:
             Xo, xbo = old(*chain)
@@ -1148,49 +1150,32 @@ def phase_goddard(ct, get_problem, kernel, kres):
     return dict(sols=sols, paths=paths, rows=rows)
 
 
-def phase_suite(ct, get_problem, kernel):
-    """The 10-problem suite under the sweep's options, one compiled solve
-    each as `ct.solve` runs it (transcribe, solve_docp: the segment graphs
-    captured, its DOCP's solvers dropped after), with one more solve_docp
-    of the same DOCP before the drop (replay only): their difference is
-    the first call's overhead."""
-    grid_total, total, rows, first_s, replay_s = 0, 0, [], 0.0, 0.0
-    for name in SUITE:
-        p = get_problem(name)
-        opts = ct.IPMOptions(**SUITE_OPTS, **SUITE_OVERRIDES.get(name, {}), **SUITE_CARD_OVERRIDES.get(name, {}))
-        docp = ct.transcribe(p.ocp, grid_size=SUITE_N, scheme="trapeze", device="cuda")
-        sol, wall, launches, grid = timed_solve(kernel, lambda: ct.solve_docp(docp, init=p.init, options=opts))
-        again, wall2, _, _ = timed_solve(kernel, lambda: ct.solve_docp(docp, init=p.init, options=opts))
-        docp.release_solvers()
-        blocks, warm = sol.infos["kkt_block_solves"], sol.infos["kkt_warmup_block_solves"]
-        if launches != blocks + warm:
-            raise AssertionError(f"suite {name}: kernel launched {launches} times, {blocks} block solves + {warm} "
-                                 f"in segment warm-ups")
-        if (again.status, again.iterations, again.objective) != (sol.status, sol.iterations, sol.objective):
-            raise AssertionError(f"suite {name}: the replayed solve (status {again.status}, {again.iterations} it, "
-                                 f"objective {again.objective!r}) differs from the first")
-        grid_total += grid
-        total += launches
-        first_s, replay_s = first_s + wall, replay_s + wall2
-        ok = bool(sol.successful) and (p.obj is None or abs(sol.objective - p.obj) <= 1e-2 * abs(p.obj))
-        ref = SUITE_JAX_CPU[name]
-        rel = abs(sol.objective - ref) / abs(ref)
-        rtol = SUITE_JAX_RTOL.get(name, SUITE_JAX_RTOL_DEFAULT)
-        rows.append((name, ok, rel, rtol))
-        log(f"  suite {name}{' ' + str(SUITE_CARD_OVERRIDES[name]) if name in SUITE_CARD_OVERRIDES else ''}: "
-            f"{'ok' if ok else 'FAIL'} (status {sol.status}), objective {sol.objective!r} (JAX CPU {ref!r}, "
-            f"rel diff {rel:.2e}, bound {rtol:g}), {sol.iterations} iterations, {wall:.2f} s wall (replay "
-            f"{wall2:.2f} s; {sol.infos['captures']} segment graphs, capture {sol.infos['capture_s']:.3f} s), "
-            f"kernel launches {launches} = {blocks} block solves + {warm} in warm-ups ({grid} CUDA launches)")
-    bad = [r for r in rows if not (r[1] and r[2] <= r[3])]
-    if bad:
-        raise AssertionError(f"suite: not ok or off the JAX CPU objective (name, ok, rel diff, bound): {bad}")
-    log(f"suite N={SUITE_N} trapeze, f32 cr + refinement: {len(rows)}/{len(SUITE)} ok, objectives within "
-        f"{max(r[2] for r in rows):.2e} of the JAX package's on the CPU; {first_s:.2f} s of compiled first calls, "
-        f"{replay_s:.2f} s replayed on the same DOCPs (first-call overhead {first_s - replay_s:.2f} s); {total} "
-        f"kernel launches ({grid_total} CUDA launches)")
-    return path_record(f"suite_trapeze_N{SUITE_N}", torch.float32, total, grid_total,
-                       total * grid_per_solve(chain_blocks(SUITE_N)))
+def phase_sweep(tag, cells, kernel, profile):
+    """`cells` through ctdirect_tpu_torch.sweep's run_sweep and checks on the
+    card (phase 11: the suite at N=250, unprofiled; phase 16: LADDER_CUT,
+    goddard_all profiled once per rung), with the kernel's counts set to 0
+    just before and read just after, then its ladder table. Returns the
+    path's kernel record."""
+    from ctdirect_tpu_torch import sweep
+
+    log(f"{tag}: ctdirect_tpu_torch.sweep.run_sweep over {len(cells)} cells (trapeze, the sweep's options"
+        f"{', goddard_all profiled once per rung' if profile else ''})")
+    kernel.reset_counts()
+    rows = sweep.run_sweep(cells, device="cuda", profile=profile, log=log)
+    launches, grid = kernel.launches, kernel.grid_launches
+    summary = sweep.report(rows, log=log)
+    if not summary["ok"]:
+        raise AssertionError(f"{tag}: cells not green or failing a check: {summary['bad']}")
+    # each cell's block solves (warm-ups, and every profile taken, included) and their planned CUDA launches
+    counted, planned = 0, 0
+    for r in rows:
+        solves = sum(r[c]["block_solves"] + r[c]["warmup_block_solves"] for c in ("first", "replay"))
+        solves += r["profile"]["block_solves"] if "profile" in r else 0
+        counted += solves
+        planned += solves * grid_per_solve(r["P"])
+    if launches != counted:
+        raise AssertionError(f"{tag}: the kernel counted {launches} launches, its cells {counted} block solves")
+    return path_record(tag, torch.float32, launches, grid, planned)
 
 
 def phase_grid_continuation(ct, get_problem, kernel, cold):
@@ -1741,7 +1726,7 @@ def kernel_entries(kres, paths):
         first = shapes[0]
         entries.append(dict(
             name=f"cr_solve_{dtype.replace('float', 'f')}", route="cuda",
-            source="ctdirect_tpu_torch/csrc/cr_solve.cu", replaces="ctdirect_tpu/solver/pallas_cr.py:281",
+            source="ctdirect_tpu_torch/csrc/cr_solve.cu", replaces="ctdirect_tpu/solver/pallas_cr.py:282",
             launches=sum(p["launches"] for p in on), grid_launches=sum(p["grid_launches"] for p in on),
             max_abs_err=max(r["max_abs_err"] for r in shapes), ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_us"] / 1e3, bound_by=first["bound_by"], library_ms=first["library_ms"],
@@ -1782,6 +1767,7 @@ def main():
     kres = phase_kernel_vs_plain(kernel, old_kernel(args.old) if args.old else None)
     phase_done("phase 3")
     phase_front_door(ct, get_problem)
+    phase_done("phase 4")
 
     rng = np.random.default_rng(0)
     xs = [torch.tensor(0.03 * rng.standard_normal((B, 2)), dtype=torch.float64, device="cuda")
@@ -1791,27 +1777,34 @@ def main():
     if not du < 1e-8:
         raise AssertionError(f"f32 vs f64 block solve: final u0 differ by {du:.3e}")
     log(f"f32 vs f64 block solve: final u0 agree to {du:.3e}")
+    phase_done("phase 5")
     for dt, m in main.items():
         phase_device_split("f32" if dt == torch.float32 else "f64", m["ctrl"], m["make_ctrl"], m["states"], xs)
-    phase_done("phases 4-6")
+    phase_done("phase 6")
 
     phase_front_door_default(ct, get_problem)
+    phase_done("phase 7")
     tick = phase_cartpole_tick(ct, get_problem, kernel)
+    phase_done("phase 8")
     batch = phase_cartpole_batch(ct, kernel, tick["docp"], tick["warm"])
-    phase_done("phases 7-9")
+    phase_done("phase 9")
     goddard = phase_goddard(ct, get_problem, kernel, kres)
-    suite = phase_suite(ct, get_problem, kernel)
+    phase_done("phase 10")
+    suite = phase_sweep(f"suite_trapeze_N{SUITE_N}", [(name, SUITE_N) for name in SUITE], kernel, profile=None)
+    phase_done("phase 11")
     grid = phase_grid_continuation(ct, get_problem, kernel, goddard["sols"]["f32"])
-    phase_done("phases 10-12")
+    phase_done("phase 12")
     fixture_ci = phase_fixture_ci(ct, get_problem, problem_names)["path"]
     phase_done("phase 13")
     sharded = phase_sharded(kernel, kres, main, goddard["sols"]["f64"].objective, xs)
     phase_done("phase 14")
     orbit = phase_orbit_scenarios(kernel)
     phase_done("phase 15")
+    ladder = phase_sweep("suite_ladder_cut", LADDER_CUT, kernel, profile="goddard_all")
+    phase_done("phase 16")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
-             *goddard["paths"], suite, grid, fixture_ci, *sharded, *orbit]
+             *goddard["paths"], suite, grid, fixture_ci, *sharded, *orbit, ladder]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))

@@ -111,12 +111,43 @@ __device__ __forceinline__ T absval(T x) {
   return x < T(0) ? -x : x;
 }
 
+template <typename T>
+__device__ __forceinline__ T quiet_nan();
+template <>
+__device__ __forceinline__ float quiet_nan<float>() {
+  return __int_as_float(0x7fc00000);
+}
+template <>
+__device__ __forceinline__ double quiet_nan<double>() {
+  return __longlong_as_double(0x7ff8000000000000LL);
+}
+
 // Pivoted Gauss-Jordan on the n x w row-major matrix G (leading dimension
 // ld) by one warp: lanes over columns; fcol (n elements) holds the column
 // being eliminated. The pivot is the first row of maximal |value| at or
-// below the diagonal, as torch.argmax picks it.
+// below the diagonal, as torch.argmax picks it. Rows j and p swap with the
+// results of the plain version's one-hot form
+// (solver/lanes.py::_gj_eliminate_lanes, the reference's kernel's too):
+// there the pivot row is read as sum_i onehot(p)_i * row_i, every row
+// moves by onehot(p) * (row_j - row_p), and row j takes row p. Per column
+// that is: rp = G[p], or NaN where another row's entry is not finite
+// (0 * inf); d = G[j] - rp; row p += d (rounds); row j = rp; and every
+// other row NaN where d is not finite (x + 0 * d), else unchanged. So the
+// kernel rounds and fails as its plain version does.
+//
+// gj_steps runs the elimination. With exact = false it takes the swap for
+// finite data: rp = G[p], d = G[j] - rp, two writes, and nothing where
+// p == j (d = 0); it returns whether the result holds a non-finite entry,
+// read from the last step, which rewrites every entry. A non-finite entry,
+// once made, never turns finite again in these steps (inf - x, x / inf
+// where x is not finite, and 0 * inf all stay non-finite), so a finite
+// result means that every step saw finite data and the finite swap was
+// the plain version's. Otherwise warp_gj loads G again and runs the steps
+// with exact = true: each swap then reads its column's rows for the
+// non-finite rule above.
 template <typename T>
-__device__ void warp_gj(T* G, int ld, int n, int w, T* fcol, int lane) {
+__device__ bool gj_steps(T* G, int ld, int n, int w, T* fcol, int lane, bool exact) {
+  bool bad = false;
   for (int j = 0; j < n; ++j) {
     T best = T(-1);
     int p = n;
@@ -136,25 +167,65 @@ __device__ void warp_gj(T* G, int ld, int n, int w, T* fcol, int lane) {
       }
     }
     if (p >= n) p = j;  // a column of NaNs: keep the diagonal
-    if (p != j) {
+    if (exact) {
       for (int c = lane; c < w; c += 32) {
-        const T t = G[j * ld + c];
-        G[j * ld + c] = G[p * ld + c];
-        G[p * ld + c] = t;
+        bool other_bad = false;
+        for (int i = 0; i < n; ++i) other_bad |= i != p && !isfinite(G[i * ld + c]);
+        const T rp = other_bad ? quiet_nan<T>() : G[p * ld + c];
+        const T d = G[j * ld + c] - rp;
+        if (!isfinite(d))
+          for (int i = 0; i < n; ++i)
+            if (i != p && i != j) G[i * ld + c] = quiet_nan<T>();
+        G[p * ld + c] += d;
+        G[j * ld + c] = rp;
+      }
+      __syncwarp();
+    } else if (p != j) {
+      for (int c = lane; c < w; c += 32) {
+        const T rp = G[p * ld + c];
+        const T d = G[j * ld + c] - rp;
+        G[p * ld + c] += d;
+        G[j * ld + c] = rp;
       }
       __syncwarp();
     }
     const T piv = G[j * ld + j];
     for (int i = lane; i < n; i += 32) fcol[i] = (i == j) ? T(0) : G[i * ld + j];
     __syncwarp();
-    for (int c = lane; c < w; c += 32) {
-      const T rj = G[j * ld + c] / piv;
-      G[j * ld + c] = rj;
-      for (int i = 0; i < n; ++i)
-        if (i != j) G[i * ld + c] -= fcol[i] * rj;
+    if (j + 1 < n) {
+      for (int c = lane; c < w; c += 32) {
+        const T rj = G[j * ld + c] / piv;
+        G[j * ld + c] = rj;
+        for (int i = 0; i < n; ++i)
+          if (i != j) G[i * ld + c] -= fcol[i] * rj;
+      }
+    } else {
+      for (int c = lane; c < w; c += 32) {
+        const T rj = G[j * ld + c] / piv;
+        G[j * ld + c] = rj;
+        bad |= !isfinite(rj);
+        for (int i = 0; i < n; ++i)
+          if (i != j) {
+            const T v = G[i * ld + c] - fcol[i] * rj;
+            G[i * ld + c] = v;
+            bad |= !isfinite(v);
+          }
+      }
     }
     __syncwarp();
   }
+  return __any_sync(kFull, bad);
+}
+
+// load() fills G (every lane its share); the Gauss-Jordan of gj_steps.
+template <typename T, typename Load>
+__device__ void warp_gj(T* G, int ld, int n, int w, T* fcol, int lane, Load load) {
+  load();
+  __syncwarp();
+  if (!gj_steps(G, ld, n, w, fcol, lane, false)) return;
+  load();
+  __syncwarp();
+  gj_steps(G, ld, n, w, fcol, lane, true);
 }
 
 template <typename T>
@@ -223,9 +294,6 @@ __global__ void up_odd(Work<T> w, Shape sh, int s, int H, int save_off) {
   T *dA = rec, *dE = rec + bb, *dr = dE + be, *dF = dr + bs, *drb = dF + wb * wb;
 
   for (int t = lane; t < bb; t += 32) {
-    const int i = t / bs, c = t % bs;
-    G[i * ld + c] = Ao_g[t];
-    G[i * ld + bs + c] = (i == c) ? T(1) : T(0);
     const T bl = Be_g[t];
     Blm[t] = bl;
     save_g[t] = bl;  // Bl, for the down-sweep (its slot takes the new coupling)
@@ -235,7 +303,13 @@ __global__ void up_odd(Work<T> w, Shape sh, int s, int H, int save_off) {
   for (int t = lane; t < bs; t += 32) ro[t] = ro_g[t];
   __syncwarp();
 
-  warp_gj(G, ld, bs, ld, fcol, lane);
+  warp_gj(G, ld, bs, ld, fcol, lane, [&] {
+    for (int t = lane; t < bb; t += 32) {
+      const int i = t / bs, c = t % bs;
+      G[i * ld + c] = Ao_g[t];
+      G[i * ld + bs + c] = (i == c) ? T(1) : T(0);
+    }
+  });
   const T* Ai = G + bs;  // A_o^-1, row stride ld
 
   // A_o^-1 over A_o; CL = Bl A_o^-1, CR = Br^T A_o^-1
@@ -358,17 +432,17 @@ __global__ void root_solve(Work<T> w, Shape sh) {
   const T* F = w.F + (size_t)b * wb * wb;
   const T* rb = w.rb + (size_t)b * wb;
   // [[A0, E0, r0], [E0^T, F, rb]]
-  for (int t = lane; t < n * ld; t += 32) {
-    const int i = t / ld, c = t % ld;
-    T x;
-    if (i < bs)
-      x = c < bs ? A0[i * bs + c] : (c < n ? E0[i * wb + c - bs] : r0[i]);
-    else
-      x = c < bs ? E0[c * wb + i - bs] : (c < n ? F[(i - bs) * wb + c - bs] : rb[i - bs]);
-    G[t] = x;
-  }
-  __syncwarp();
-  warp_gj(G, ld, n, ld, fcol, lane);
+  warp_gj(G, ld, n, ld, fcol, lane, [&] {
+    for (int t = lane; t < n * ld; t += 32) {
+      const int i = t / ld, c = t % ld;
+      T x;
+      if (i < bs)
+        x = c < bs ? A0[i * bs + c] : (c < n ? E0[i * wb + c - bs] : r0[i]);
+      else
+        x = c < bs ? E0[c * wb + i - bs] : (c < n ? F[(i - bs) * wb + c - bs] : rb[i - bs]);
+      G[t] = x;
+    }
+  });
   for (int i = lane; i < n; i += 32) {
     if (i < bs)
       w.X[inst * bs + i] = G[i * ld + n];

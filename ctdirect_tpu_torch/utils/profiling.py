@@ -2,9 +2,11 @@
 `ctdirect_tpu.utils.profiling`): wall-clock timing with device
 synchronization, and `torch.profiler` tracing into a Chrome trace; on a
 card, a profile that counts the CUDA kernels it saw and the activity
-records CUPTI dropped (`kernel_events`, `profiled_solve`), and the device
+records CUPTI dropped (`kernel_events`, `profiled_solve`), the device
 time of a profiled run split by the stages that were open on the host when
-each kernel was launched (`ranged`, `kkt_ranges`, `stage_split`)."""
+each kernel was launched (`ranged`, `kkt_ranges`, `stage_split`), and the
+device's idle time of a profiled compiled solve split by the segment whose
+host window it falls in (`segment_ranges`, `segment_split`)."""
 
 from __future__ import annotations
 
@@ -29,8 +31,13 @@ CR_KERNELS = re.compile(r"\b(up_odd|up_even|root_solve|down|transpose_kernel)<")
 _DROPPED = re.compile(rb"Dropped (\d+) activity records")
 # kernel_events' profiles of one call at most (a profile that lost records is taken again)
 PROFILE_TRIES = 3
+# idle s that device_profile keeps inside the profiler before and after the
+# profiled call (tools/profile_misses.py measures what it changes)
+PROFILE_MARGIN_S = 0.0
 # the prefix of the profiler ranges that `ranged` opens and `stage_split` reads
 STAGE = "stage:"
+# the prefix of the ranges that `segment_ranges` opens and `segment_split` reads
+SEGMENT = "segment:"
 # the KKT operator's methods that `kkt_ranges` wraps, and the stage each is reported as
 KKT_STAGES = {"prepare": "prepare", "solve": "solve (other)", "_assemble": "assemble",
               "_block_solve": "block solve (casts, pad)"}
@@ -157,10 +164,12 @@ def device_profile(fn):
     with tempfile.TemporaryFile() as f:
         with _stderr_to(f):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                time.sleep(PROFILE_MARGIN_S)
                 t0 = time.perf_counter()
                 out = fn()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                time.sleep(PROFILE_MARGIN_S)
         f.seek(0)
         err = f.read()
     os.write(2, err)
@@ -227,22 +236,117 @@ def kernel_events(fn) -> dict:
     return dict(prof=prof, wall=wall, totals=totals, want=want, seen=seen, dropped=dropped, tries=k)
 
 
-def profiled_solve(solve, solves, per) -> dict:
+def profiled_solve(solve, solves, per, graph=None) -> dict:
     """A solve under torch.profiler (`kernel_events`, which raises unless
     the profiler sees the CR kernel's planned CUDA launches: the block
     solves that `solves()` counts in the call x `per`, the CUDA launches of
     one): its wall s, device busy s, CR kernel s, the CR kernel's CUDA
-    launches seen, all kernel launches seen, and the profiler's dropped
-    records and profiles."""
+    launches seen, all kernel launches seen, the profiler's dropped
+    records and profiles, and `block_solves`, those of every profile taken
+    (each runs the solve again). With `graph` (the BatchGraph the solve runs its
+    segments through), also `segments`: the device's idle time split by
+    segment (`segment_ranges`, `segment_split`)."""
+    total = 0
+
     def run():
+        nonlocal total
         n0 = solves()
         solve()
+        total += solves() - n0
         return (solves() - n0) * per
 
-    rec = kernel_events(run)
+    with segment_ranges(graph) if graph is not None else contextlib.nullcontext():
+        rec = kernel_events(run)
     t = rec["totals"]
-    return dict(wall=rec["wall"], busy=t["busy"], cr=t["cr"], cr_launches=rec["seen"], launches=t["events"],
-                dropped=rec["dropped"], tries=rec["tries"])
+    out = dict(wall=rec["wall"], busy=t["busy"], cr=t["cr"], cr_launches=rec["seen"], launches=t["events"],
+               dropped=rec["dropped"], tries=rec["tries"], block_solves=total)
+    if graph is not None:
+        out["segments"] = segment_split(rec["prof"])
+    return out
+
+
+@contextlib.contextmanager
+def segment_ranges(graph):
+    """Over the block, each segment that `graph` (solver/graph.py's
+    BatchGraph) runs does so inside a profiler range named SEGMENT + the
+    segment's name (`graph.run` wrapped on the instance, taken off after)."""
+    from torch.profiler import record_function
+
+    run = graph.run
+
+    def wrapped(name):
+        with record_function(SEGMENT + name):
+            return run(name)
+
+    graph.run = wrapped
+    try:
+        yield graph
+    finally:
+        del graph.run
+
+
+def segment_split(prof) -> Dict[str, dict]:
+    """The device's idle time in a profile of a solve run with
+    `segment_ranges`, split by the segment whose host window it falls in.
+    A segment's window runs from the start of its range to the start of the
+    next segment's, so it holds the segment's replay and the host's work up
+    to the next segment (the flag reads and decisions after it); "set-up"
+    is the time before the first segment, "epilogue" the time after the
+    last one's range, to the end of the last event. The device is busy
+    where a device event runs (their union) and idle elsewhere. Returns
+    name -> dict(runs, window_s, busy_s, idle_s), in the order of first
+    use, set-up first and epilogue last."""
+    import bisect
+
+    windows, spans, first, last = [], [], None, None
+    for e in prof.profiler.kineto_results.events():
+        name, start = e.name(), e.start_ns()
+        end = start + e.duration_ns()
+        first = start if first is None else min(first, start)
+        last = end if last is None else max(last, end)
+        if e.device_type().name == "CPU":
+            if name.startswith(SEGMENT):
+                windows.append([start, end, name[len(SEGMENT):]])
+        elif not (e.is_user_annotation() or name.startswith((STAGE, SEGMENT))):
+            spans.append((start, end))
+    if first is None:
+        return {}
+    windows.sort()
+    # a window ends where the next segment starts; the last at its range's end
+    for w, nxt in zip(windows, windows[1:]):
+        w[1] = nxt[0]
+    head = windows[0][0] if windows else last
+    tail = windows[-1][1] if windows else last
+    windows = [[first, head, "set-up"], *windows, [tail, last, "epilogue"]]
+
+    # the union of the device spans, and its busy ns before each span's start
+    merged = []
+    for s, e in sorted(spans):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    starts = [s for s, _ in merged]
+    before = [0]
+    for s, e in merged:
+        before.append(before[-1] + e - s)
+
+    def busy_until(t):
+        j = bisect.bisect_right(starts, t) - 1
+        if j < 0:
+            return 0
+        s, e = merged[j]
+        return before[j] + min(t, e) - s
+
+    split = {}
+    for a, b, name in windows:
+        rec = split.setdefault(name, dict(runs=0, window_s=0.0, busy_s=0.0, idle_s=0.0))
+        busy = busy_until(b) - busy_until(a)
+        rec["runs"] += name not in ("set-up", "epilogue")
+        rec["window_s"] += (b - a) / 1e9
+        rec["busy_s"] += busy / 1e9
+        rec["idle_s"] += (b - a - busy) / 1e9
+    return split
 
 
 def ranged(stage: str, fn: Callable) -> Callable:

@@ -126,6 +126,26 @@ def test_kernel_events_profiles_again_only_where_records_were_dropped(monkeypatc
         assert rec["totals"] == dict(busy=127e-9, cr=27e-9, cr_events=27, events=127)
 
 
+def test_profiled_solve_counts_the_block_solves_of_every_profile(monkeypatch):
+    """A profile taken again (CUPTI dropped records in the first) runs the
+    solve again: profiled_solve's block_solves counts the solves of every
+    profile taken, as the kernel's own counts do, and its plan is the last
+    profile's."""
+    readings = [(20, 5), (27, 0)]
+    solves = []
+
+    def fake_profile(fn):
+        seen, lost = readings[len(solves)]
+        want = fn()
+        events = [_event("void up_odd<double>(double*)", "CUDA", 0, 1)] * seen
+        return want, _profile(events), 0.5, lost
+
+    monkeypatch.setattr(profiling, "device_profile", fake_profile)
+    rec = profiling.profiled_solve(lambda: solves.append(1), lambda: len(solves), 27)
+    assert (rec["tries"], rec["dropped"], rec["cr_launches"]) == (2, 5, 27)
+    assert rec["block_solves"] == len(solves) == 2
+
+
 def test_kkt_ranges_wrap_the_operator_for_the_block_only():
     """kkt_ranges puts each KKT_STAGES method of one operator in a profiler
     range named after its stage over the block and takes it off after; the

@@ -148,13 +148,17 @@ def random_chain_lanes(P, bs, wb, B, seed=0, dtype=np.float64):
     symmetry. Same construction as tests/test_pallas.py, whose diagonal
     shift of 4 keeps blocks up to bs = 12 well conditioned; wider blocks get
     a shift of 4 + bs (their off-diagonal row sums grow with bs, and with a
-    shift of 4 a width-41 chain has f64 solutions that differ by 0.5)."""
+    shift of 4 a width-41 chain has f64 solutions that differ by 0.5), and
+    so do chains of more than 4,096 blocks: with a shift of 4 the chain's
+    spectrum reaches near zero as it grows (bs=10, wb=12: max |x| 32 at
+    P=256, 3.7e3 at P=8,192, where the plain f32 and f64 solutions differ
+    by 1.9e-3 relative; with 4 + bs, 0.33 and 3.1e-7)."""
     rng = np.random.default_rng(seed)
 
     def rnd(*s):
         return rng.standard_normal(s).astype(dtype)
 
-    shift = 4.0 if bs <= 12 else 4.0 + bs
+    shift = 4.0 if bs <= 12 and P <= 4096 else 4.0 + bs
     A = rnd(P, bs, bs, B) * 0.3
     A = A + np.swapaxes(A, 1, 2) + np.eye(bs, dtype=dtype)[None, :, :, None] * shift
     Bp = rnd(P, bs, bs, B) * 0.3

@@ -3,7 +3,7 @@ recipe (tests/test_all_ocp.py) in either package, with another KKT solve or
 a guess moved by a few ulps, held to the CI's oracle. It runs the recipe
 stage by stage and prints one JSON line per stage.
 
-A job is [fixture, package, device, block, dtv]:
+A job is [fixture, package, device, block, dtv] or [..., dtv, ulps]:
   package  "jax" (the JAX package, CPU only) or "torch" (the port)
   block    structured  the CI's own scan solve (kkt_mode="structured")
            kernel      kkt_mode="cr" as dispatched: the CR kernel on a CUDA
@@ -16,11 +16,23 @@ A job is [fixture, package, device, block, dtv]:
                        residuals, and how often each residual is 10x the other
   dtv      added to the first entry of the fixture's variable guess (for
            space_shuttle its tf guess, 500: 1e-10 is a change of a few ulps)
+  ulps     the first stage's whole guess vector z0 scaled by 1 + ulps * 2**-52
+           (each entry moved by about `ulps` ulps; for fixtures with no
+           variable, such as algal_bacterial); default 0
+
+--guesses DIR compares the packages stage by stage from the same guess: a
+"jax" job writes the guess z0 each of its stages starts from to
+DIR/<fixture>.npz, and a "torch" job then starts each stage from that
+stage's saved z0 (not from its own previous stage's solution).
 
     python tools/ci_override_witness.py --workers 4 --jobs \
         '[["space_shuttle","jax","cpu","kernel",1e-10],["quadrotor","jax","cpu","kernel",0]]'
     python tools/ci_override_witness.py --workers 3 --deadline 360 --stages 1 --jobs \
         '[["space_shuttle","torch","cuda","shadow",0],["space_shuttle","torch","cuda","plain",1e-10]]'
+    python tools/ci_override_witness.py --workers 4 --jobs \
+        '[["algal_bacterial","jax","cpu","kernel",0,1],["algal_bacterial","jax","cpu","kernel",0,-1]]'
+    python tools/ci_override_witness.py --guesses g --jobs '[["algal_bacterial","jax","cpu","kernel",0]]'
+    python tools/ci_override_witness.py --guesses g --jobs '[["algal_bacterial","torch","cpu","kernel",0]]'
 
 --stages cuts every job after that many stages; --deadline (seconds) ends the
 pool then, so a run on a card fits its time limit.
@@ -119,6 +131,8 @@ def run_torch(tag):
 def stages(transcribe, solve, InitialGuess, IPMOptions, prob, cfg, tag, stats, kernel=None):
     from chip_smoke import ci_verdict
 
+    import numpy as np
+
     guess = prob.init
     if tag["dtv"]:
         v = [float(a) for a in guess.variable]
@@ -127,9 +141,18 @@ def stages(transcribe, solve, InitialGuess, IPMOptions, prob, cfg, tag, stats, k
     opts = IPMOptions(**{**cfg.opts, "kkt_mode": mode})
     warm = opts if cfg.warm_mu is None else opts.replace(mu_init=cfg.warm_mu)
     grids = (cfg.pre_grids + [cfg.grid])[:tag["stages"]]
+    path = Path(tag["guesses"]) / f"{tag['fixture']}.npz" if tag["guesses"] else None
+    saved = dict(np.load(path)) if path is not None and tag["package"] == "torch" else {}
     t0 = time.perf_counter()
     for k, n in enumerate(grids):
         docp = transcribe(prob.ocp, grid_size=n, scheme=cfg.scheme)
+        z0 = saved.get(f"z0_{k}")
+        if z0 is None:
+            z0 = np.asarray(docp.initial_guess(guess), dtype=np.float64)
+            if k == 0 and tag["ulps"]:
+                z0 = z0 * (1 + tag["ulps"] * 2.0**-52)
+        saved[f"z0_{k}"] = z0
+        docp.initial_guess = lambda init=None, z0=z0: z0.copy()
         sol = solve(docp, guess, opts if k == 0 or cfg.warm_mu is None else warm)
         row = dict(tag, stage=k, N=n, status=int(sol.status), message=str(sol.message),
                    iterations=int(sol.iterations), objective=float(sol.objective),
@@ -140,13 +163,17 @@ def stages(transcribe, solve, InitialGuess, IPMOptions, prob, cfg, tag, stats, k
             row["verdict"] = ci_verdict(tag["fixture"], prob, cfg, sol)
         emit(row)
         guess = InitialGuess.from_solution(sol)
+    if path is not None and tag["package"] == "jax":
+        path.parent.mkdir(parents=True, exist_ok=True)
+        np.savez(path, **saved)
     return tag
 
 
 def job(args):
-    fixture, package, device, block, dtv, n_stages = args
+    (fixture, package, device, block, dtv, *rest), n_stages, guesses = args
     _paths()
-    tag = dict(fixture=fixture, package=package, device=device, block=block, dtv=dtv, stages=n_stages)
+    tag = dict(fixture=fixture, package=package, device=device, block=block, dtv=dtv, ulps=rest[0] if rest else 0,
+               stages=n_stages, guesses=guesses)
     try:
         return run_jax(tag) if package == "jax" else run_torch(tag)
     except Exception as e:  # noqa: BLE001 - report it and go on with the other jobs
@@ -160,11 +187,12 @@ def main():
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--deadline", type=float, default=1e9, help="seconds; then the pool is terminated")
     ap.add_argument("--stages", type=int, default=99, help="stages of the recipe to run (default: all)")
+    ap.add_argument("--guesses", help="directory of the JAX package's stage guesses (see the docstring)")
     args = ap.parse_args()
     _paths()
-    jobs = [tuple(j) + (args.stages,) for j in json.loads(args.jobs)]
+    jobs = [(tuple(j), args.stages, args.guesses) for j in json.loads(args.jobs)]
     t0 = time.time()
-    if any(j[2] == "cuda" for j in jobs):  # build the kernel once, before the workers
+    if any(j[0][2] == "cuda" for j in jobs):  # build the kernel once, before the workers
         from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
 
         cr_solve_batched.library()
