@@ -156,10 +156,25 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      blocks), with phase 11's checks and, once per rung, a profiled replay
      of goddard_all that must see every planned CUDA launch of the CR
      kernel (its busy, idle and CR shares and its idle by segment printed);
-     the ladder table against Ipopt's totals.
+     the ladder table against Ipopt's totals;
+ 17. BASELINE config 5 through ctdirect_tpu_torch.multihost's run and
+     checks in a one-rank NCCL world (MULTIHOST_SIZES): the batch-sharded
+     MPC tick (MPCController(mesh=, batch_axis="batch"), a replayed CUDA
+     graph) of the double integrator (N=100, 512 a card, 10 timed ticks)
+     and of cart-pole (N=60, 1,024 a card, 5 timed ticks) from the warm
+     states of phases 5 and 8 (the same cold starts as the script's own)
+     over the (seed, tick) x0 draws: the replay
+     bitwise its eager tick (u0 and KKT at every tick, the states), max KKT
+     < 1e-10 (the double integrator), no message in the timed loop and one
+     all_reduce a tick in the isolation loop, ticks x 3 CR launches and a
+     profiled replay that sees their CUDA launches (72 / 63) and no NCCL
+     kernel; cart-pole's BatchSolver(mesh=) over 1,024 scenarios, a first
+     graphed call and a replay, bitwise its eager solve, converged share
+     >= CP_MIN_CONVERGED.
 Each phase's wall is printed after it.
 Phase 3 also holds the kernel against its plain version at the cart-pole
-chain (P=64, bs=9, wb=13, B=1024, f64), at the Goddard GL2 chain of phase 10
+chain (P=64, bs=9, wb=13, B=1024 and BASELINE config 5's CP5_B a card,
+f64), at the Goddard GL2 chain of phase 10
 (P=256, bs=19, wb=8, B=1, f32 and f64) and at the width-41 goddard_all GL3
 chain (P=256, bs=30, wb=11, B=1 and B=256, f64), and at phase 13's widest
 and longest chains (quadrotor P=256 bs=21 wb=28, orbit_transfer P=512 bs=11
@@ -212,6 +227,7 @@ os.environ.setdefault("KINETO_LOG_LEVEL", "2")
 import numpy as np
 import torch
 
+from ctdirect_tpu_torch.multihost import PROBLEMS as MULTIHOST_PROBLEMS
 from ctdirect_tpu_torch.sweep import SUITE, chain_blocks
 
 B, N, ITERS = 512, 100, 3
@@ -227,6 +243,8 @@ RESID_TOL = {torch.float32: 2e-4, torch.float64: 1e-12}
 CP_N, CP_B, CP_WARMUP, CP_TICKS = 60, 1024, 2, 10
 P_CP, BS_CP, WB_CP = 64, 9, 13  # its trapeze KKT chain (padded to a power of two)
 CP_UMAX = 12.0
+# BASELINE config 5's cart-pole tick a card (multihost.py's full run)
+CP5_B = MULTIHOST_PROBLEMS["cartpole"]["batch_per_chip"]
 CP_BATCH, CP_CHECK = 1024, (0, 511, 1023)
 # min(0.95, the share that the JAX package converges on the CPU for the first
 # 16 of the same draws with the same options: 7 of 16, PERF.md)
@@ -249,7 +267,7 @@ BS_L, WB_L = 10, 12
 P_L5, P_L10 = 8192, 16384
 # phase 3's shapes: (dtype, P, bs, wb, B)
 PHASE3_SHAPES = [(torch.float32, P_TICK, BS_TICK, WB_TICK, B), (torch.float64, P_TICK, BS_TICK, WB_TICK, B),
-                 (torch.float64, P_CP, BS_CP, WB_CP, CP_B),
+                 (torch.float64, P_CP, BS_CP, WB_CP, CP_B), (torch.float64, P_CP, BS_CP, WB_CP, CP5_B),
                  (torch.float32, P_GD, BS_GD, WB_GD, 1), (torch.float64, P_GD, BS_GD, WB_GD, 1),
                  (torch.float64, P_W, BS_W, WB_W, 1), (torch.float64, P_W, BS_W, WB_W, B_W),
                  (torch.float64, P_QR, BS_QR, WB_QR, 1), (torch.float64, P_OT, BS_OT, WB_OT, 1),
@@ -365,6 +383,11 @@ SHARD_TIMEOUT = 600.0
 # attribution, the alignment witness's ~120 s; the script's own run takes
 # them) keep the phase near 180 s (PERF.md)
 ORBIT_CFG = dict(N=500, B=2048, nominal_mode="cr", diagnostics=False)
+# phase 17: BASELINE config 5 through multihost.run in a one-rank NCCL world,
+# (per-card batch, timed ticks) a problem; the script's own run (`python -m
+# ctdirect_tpu_torch.multihost --nproc 4`) takes cart-pole at its full
+# per-card batch on 1, 2 and 4 cards
+MULTIHOST_SIZES = {"double_integrator_minenergy": (512, 10), "cartpole": (1024, 5)}
 
 
 def ci_fixtures(names):
@@ -1672,6 +1695,37 @@ def phase_orbit_scenarios(kernel):
     return paths
 
 
+def phase_multihost(kernel, warm):
+    """Phase 17: BASELINE config 5's batch-sharded tick (the double
+    integrator and cart-pole) and cart-pole's BatchSolver(mesh=) through
+    ctdirect_tpu_torch.multihost's run and checks in a one-rank NCCL world
+    (MULTIHOST_SIZES), from `warm` (problem -> the warm state of phase 5's
+    or phase 8's cold start, which is the run's own under the same
+    options). Returns the paths' kernel records."""
+    from ctdirect_tpu_torch import multihost
+
+    cfg = multihost.default_cfg()
+    for name, (per_card, ticks) in MULTIHOST_SIZES.items():
+        cfg["problems"][name].update(batch_per_chip=per_card, timed=ticks,
+                                     warm={f: getattr(warm[name], f).cpu().numpy() for f in warm[name]._fields})
+    t0 = time.perf_counter()
+    results = multihost.run(1, cfg, timeout=SHARD_TIMEOUT)
+    log(f"BASELINE config 5: multihost.run in a one-rank NCCL world, {time.perf_counter() - t0:.1f} s")
+    summary = multihost.report(results, cfg, log=lambda m: log("  " + m))
+    if summary["failed"]:
+        raise AssertionError(f"phase 17: {summary['failed']}")
+    (r,) = results[1]
+    paths = [path_record(f"mpc_tick_{tag}_batch_sharded_nccl", torch.float64, r[name]["replay"]["launches"],
+                         r[name]["replay"]["grid_launches"], r[name]["replay"]["launches"] * r[name]["per"])
+             for name, tag in (("double_integrator_minenergy", "di"), ("cartpole", "cartpole"))]
+    per = r["cartpole"]["per"]
+    for call, suffix in (("first", "_first_call"), ("replay", "")):
+        c = r["cartpole"]["solver"]["calls"][call]
+        paths.append(path_record(f"batch_solve_cartpole_batch_sharded_nccl{suffix}", torch.float64, c["launches"],
+                                 c["grid_launches"], c["launches"] * per))
+    return paths
+
+
 def kernel_name(mangled):
     """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`."""
     m = re.match(r"_ZN(\d+)", mangled)
@@ -1802,9 +1856,12 @@ def main():
     phase_done("phase 15")
     ladder = phase_sweep("suite_ladder_cut", LADDER_CUT, kernel, profile="goddard_all")
     phase_done("phase 16")
+    config5 = phase_multihost(kernel, {"double_integrator_minenergy": main[torch.float64]["warm"],
+                                       "cartpole": tick["warm"]})
+    phase_done("phase 17")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
-             *goddard["paths"], suite, grid, fixture_ci, *sharded, *orbit, ladder]
+             *goddard["paths"], suite, grid, fixture_ci, *sharded, *orbit, ladder, *config5]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))

@@ -82,7 +82,7 @@ class ShardAxis:
     """One named axis of a DeviceMesh as this rank sees it: its process
     group, the rank in it, its size and backend, and the collectives the
     distributed CR needs (`halo_from_left`, `halo_from_right`, `psum`,
-    `all_gather`). `messages` counts this rank's point-to-point sends and
+    `all_gather`), and `pmax`. `messages` counts this rank's point-to-point sends and
     receives and its collective calls; `staged_messages` those of them that
     went through the host. `capturable` says whether its messages can sit
     in a CUDA graph (NCCL)."""
@@ -145,6 +145,12 @@ class ShardAxis:
         """Sum of x over the axis, on every rank."""
         buf = x.cpu() if self._count(x) else x.clone()
         dist.all_reduce(buf, group=self.group)
+        return buf.to(x.device)
+
+    def pmax(self, x):
+        """Max of x over the axis, on every rank."""
+        buf = x.cpu() if self._count(x) else x.clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=self.group)
         return buf.to(x.device)
 
     def all_gather(self, x):

@@ -27,6 +27,8 @@ TRACE_FILE = "trace.json"
 # the CR kernel's CUDA kernels (csrc/cr_solve.cu), as the profiler names them;
 # pack and unpack are transpose_kernel
 CR_KERNELS = re.compile(r"\b(up_odd|up_even|root_solve|down|transpose_kernel)<")
+# NCCL's kernels (its collectives and point-to-point messages)
+NCCL_KERNELS = re.compile(r"nccl", re.I)
 # kineto's warning when CUPTI had no buffer room for activity records
 _DROPPED = re.compile(rb"Dropped (\d+) activity records")
 # kernel_events' profiles of one call at most (a profile that lost records is taken again)
@@ -206,10 +208,11 @@ def _raw_events(prof):
 
 def device_totals(prof) -> dict:
     """A profile's device busy s, CR kernel s and CUDA launches (events) of
-    the CR kernel (CR_KERNELS) and of all device work."""
+    the CR kernel (CR_KERNELS), of NCCL and of all device work."""
     device, _, _ = _raw_events(prof)
     cr = [ns for name, ns, _ in device if CR_KERNELS.search(name)]
-    return dict(busy=sum(ns for _, ns, _ in device) / 1e9, cr=sum(cr) / 1e9, cr_events=len(cr),
+    nccl = sum(1 for name, _, _ in device if NCCL_KERNELS.search(name))
+    return dict(busy=sum(ns for _, ns, _ in device) / 1e9, cr=sum(cr) / 1e9, cr_events=len(cr), nccl_events=nccl,
                 events=len(device))
 
 

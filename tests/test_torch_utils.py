@@ -113,6 +113,7 @@ def test_kernel_events_profiles_again_only_where_records_were_dropped(monkeypatc
         taken.append(seen)
         events = [_event("void up_odd<double>(double*)", "CUDA", 0, 1)] * seen
         events += [_event("void elementwise_kernel<128, 4>()", "CUDA", 0, 1)] * 100
+        events += [_event("ncclDevKernel_AllReduce_Max_f64_RING_LL(ncclDevKernelArgsStorage<4096ul>)", "CUDA", 0, 1)] * 2
         return fn(), _profile(events), 0.5, lost
 
     monkeypatch.setattr(profiling, "device_profile", fake_profile)
@@ -123,7 +124,7 @@ def test_kernel_events_profiles_again_only_where_records_were_dropped(monkeypatc
     else:
         rec = profiling.kernel_events(lambda: 27)
         assert (rec["seen"], rec["want"], rec["tries"], rec["dropped"]) == (27, 27, expect["tries"], expect["dropped"])
-        assert rec["totals"] == dict(busy=127e-9, cr=27e-9, cr_events=27, events=127)
+        assert rec["totals"] == dict(busy=129e-9, cr=27e-9, cr_events=27, nccl_events=2, events=129)
 
 
 def test_profiled_solve_counts_the_block_solves_of_every_profile(monkeypatch):
