@@ -4,14 +4,18 @@
 
 Phases (any failure raises and the script exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CR kernel from ctdirect_tpu_torch/csrc/cr_solve.cu (ptxas report);
-  3. kernel vs its plain PyTorch version at the MPC tick shape
+  2. build the two kernels, the CR kernel from ctdirect_tpu_torch/csrc/cr_solve.cu
+     and the scan kernel (the structured block solve) from csrc/scan_solve.cu,
+     one nvcc each, started together (ptxas report);
+  3. the CR kernel vs its plain PyTorch version at the MPC tick shape
      (P=128, bs=5, wb=7, B=512) in float32 and float64, plus a dense-residual
      check on 3 lanes; times of both (CUDA events, median of 20 calls for the
      kernel, of 3-20 within a 2 s budget for the plain version);
   4. the front door: ct.solve(double integrator, N=100, trapeze) on the card
-     against its analytic oracles;
-  5. the main path: cold start (a compiled solve, as in phase 10) + 512
+     against its analytic oracles, its structured block solves (warm-ups
+     included) equal to the scan kernel's launches;
+  5. the main path: cold start (a compiled structured solve, as in phase 10;
+     scan kernel launches = its block solves) + 512
      warm-started MPC controllers at N=100,
      3 Newton steps per tick, with the f32 and then the f64 block solve, run
      twice from the same warm state over the same x0 sequence: the eager
@@ -29,8 +33,10 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      wrapper's counts; then the eager tick's device ms by stage (the KKT
      operator's prepare, assemble, block solve and the CR kernel, the rest);
   7. the front door with the default scheme (midpoint): ct.solve(double
-     integrator, N=100) with no scheme= against the same analytic oracles;
-  8. the cart-pole MPC tick (BASELINE config 3): cold start + 1024 warm-started
+     integrator, N=100) with no scheme= against the same analytic oracles,
+     scan kernel launches = structured block solves;
+  8. the cart-pole MPC tick (BASELINE config 3): cold start (scan kernel
+     launches = its block solves) + 1024 warm-started
      controllers at N=60 trapeze, 3 Newton steps, f64 block solve; 2 warm-up
      + 10 timed ticks, eager and replayed as in phase 5 (launches = ticks x
      3, the replay held to the eager tick), then phase 6's split over 3
@@ -89,7 +95,9 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      the suite (22 fixtures) under its recipe from the JAX CI
      (tests/test_all_ocp.py, copied as CI_CONFIG: grid, scheme, coarse-to-fine
      stages, warm mu, tol 1e-6, max_iter, mu_init), f64, kkt_mode="cr" but
-     for CI_CARD_OVERRIDES, in CI_WORKERS processes sharing the card, held
+     for CI_CARD_OVERRIDES (the JAX CI's structured solve: the scan kernel),
+     each fixture's block solves on its mode's kernel and none on the other,
+     each recipe from its fixture's guess; in CI_WORKERS processes sharing the card, held
      to that CI's oracle (successful; objective within rtol of the stored
      one, truck_trailer's better-optimum band, orbit_transfer's fuel bounds;
      success only where none is stored); walls by utils.profiling.timed, one
@@ -142,8 +150,9 @@ Phases (any failure raises and the script exits non-zero, printing no result):
  15. BASELINE config 4, the orbit-transfer scenario batch, through
      ctdirect_tpu_torch.orbit_scenarios' run and checks at full width
      (midpoint N=500: a KKT chain of P=512, bs=11, wb=13) with ORBIT_CFG's
-     batch size and nominal KKT solve: the compiled nominal solve held to
-     the JAX package's objective; the scenario BatchSolver (kkt_mode="cr")
+     batch size and nominal KKT solve (the structured solve, on the scan
+     kernel: launches = its block solves): the compiled nominal solve held
+     to the JAX package's structured objective 0.17222008 at 1e-3; the scenario BatchSolver (kkt_mode="cr")
      eager, first graphed call and replay, held to each other bitwise, each
      with its kernel launches = its KKT solves (+ the warm-ups'); a profiled
      graphed solve whose CR launches must be the KKT solves x 30; the
@@ -170,7 +179,14 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      profiled replay that sees their CUDA launches (72 / 63) and no NCCL
      kernel; cart-pole's BatchSolver(mesh=) over 1,024 scenarios, a first
      graphed call and a replay, bitwise its eager solve, converged share
-     >= CP_MIN_CONVERGED.
+     >= CP_MIN_CONVERGED;
+ 18. the single-solve latency lab (ctdirect_tpu_torch.latency_lab's run_lab,
+     report and checks; benchmarks/latency_lab.py's port) at LAB_N: beam and
+     goddard (trapeze) under structured:f64, cr:f64, cr:f32 and
+     structured:f32, each a compiled first call and LAB_REPS replays
+     (bitwise the first), its block solves on its mode's kernel (the scan
+     kernel in f64 and f32, the CR kernel) and none on the other, status and
+     objective against the JAX package's on the CPU where recorded.
 Each phase's wall is printed after it.
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024 and BASELINE config 5's CP5_B a card,
@@ -181,7 +197,15 @@ and longest chains (quadrotor P=256 bs=21 wb=28, orbit_transfer P=512 bs=11
 wb=15, B=1, f64), at these shapes with the dense residual checked on every
 lane, at phase 15's (P=512, bs=11, wb=13, B=2048, f64; 3 lanes), and at
 the suite ladder's longest chains (goddard_all trapeze, bs=10, wb=12, B=1:
-N=5000 gives P=8,192 and N=10,000 P=16,384; f32 and f64). At each shape it prints the kernel's,
+N=5000 gives P=8,192 and N=10,000 P=16,384; f32 and f64). Then it holds the
+scan kernel against its plain version (the structured solve's _scan_solve)
+at SCAN_SHAPES (quadrotor N=150 bs=21 wb=28, orbit_transfer N=500 bs=11
+wb=13 and goddard_all trapeze N=5000 bs=10 wb=12 at B=1, cart-pole N=60
+bs=9 wb=13 at B=1024; f64 and f32): max abs difference / (1 + max |x|)
+within SCAN_TOL, the block-matvec residual of every instance, one launch a
+call; with the kernel's, the plain version's and the library call's times,
+the bound and the latency floor (one chain's operations on one SM). At each
+CR shape it prints the kernel's,
 the plain version's and a library call's time (torch.linalg.solve of the
 same system as one dense matrix per instance, at most LIBRARY_MAX_B of
 them; where they would pass LIBRARY_MAX_BYTES, of the chain's first
@@ -194,10 +218,13 @@ spill or a stack frame of 1 KB or more. Each path's launches are counted
 from zero just before it runs and read just after: one `launches` per block
 solve, and `grid_launches` must equal the planned CUDA launches of those
 solves (3 + 3 log2 P each, P = the path's chain padded to a power of two).
+Scan kernel paths count one launch per structured block solve (one CUDA
+launch each).
 The card's name and power limit are printed first and again just before the
-JSON lines; the line before the last is a JSON object describing the kernel
-(one entry per dtype: its launches and CUDA launches per path, the times,
-bounds and library times at every shape); the last line is
+JSON lines; the line before the last is a JSON object describing the kernels
+(one entry per kernel and dtype: its launches (and the CR kernel's CUDA
+launches) per path, the times, bounds and library times at every shape);
+the last line is
 {"ok": true, "device": {...}}.
 
 --old OLD_SOURCE adds the earlier one-thread-per-instance kernel, built from
@@ -208,6 +235,7 @@ calls each, fewer where one call takes seconds). Its calls count nowhere.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import hashlib
@@ -288,7 +316,21 @@ LIBRARY_MAX_BYTES = 16e9
 # products of the reduction could use)
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
+SM_COUNT = 132  # its SMs: the scan kernel walks a chain on one of them
 MAX_STACK_BYTES = 1024
+# phase 3's chains of the scan kernel (the structured block solve), (dtype, N,
+# bs, wb, B): quadrotor's (phase 13's widest structured recipe, N=150),
+# config 4's nominal (orbit_transfer midpoint N=500) and the ladder's longest
+# (goddard_all trapeze N=5000), each at B=1, and the cart-pole tick's chain
+# (N=60) at B=1024; the plain version is the structured solve's own
+# _scan_solve. Their random chains take the diagonal shift 4 + bs (with the
+# helper's 4, the orbit-width chain has max |x| 396 and two f32 solves of it
+# differ by 1.1e-3 relative: torch_helpers.random_chain_lanes)
+SCAN_SHAPES = [(dt, *shape) for shape in ((150, BS_QR, WB_QR, 1), (500, BS_O4, WB_O4, 1), (5000, BS_L, WB_L, 1),
+                                          (60, BS_CP, WB_CP, CP_B))
+               for dt in (torch.float64, torch.float32)]
+# the scan kernel against its plain version: max abs difference / (1 + max |x|)
+SCAN_TOL = {torch.float32: 1e-3, torch.float64: 1e-10}
 # phase 12, cut from grids (50, 200) to (50, 100) to keep the script near half
 # its time limit (PERF.md). Its final stage is held against the JAX
 # package's grid_continuation with the same grids and options on the CPU
@@ -353,19 +395,17 @@ CI_WORKERS = 3
 CI_LONGEST_FIRST = ("orbit_transfer", "algal_bacterial", "quadrotor", "space_shuttle", "swimmer", "swimmer2",
                     "bioreactor_Ndays", "action", "moonlander", "truck_trailer")
 # Card overrides of kkt_mode="cr": these run the JAX CI's own structured
-# (scan) block solve, whose KKT solves are plain PyTorch, not the kernel. The
-# recipe does not hold under "cr" in the reference either, or holds only by
-# rounding luck (tools/ci_override_witness.py; PERF.md, ROADMAP.md queue 3):
-# quadrotor's fails under "cr" in both packages on the CPU; space_shuttle's
-# passes or fails with a few-ulp change of its tf guess in the JAX package
-# under either KKT solve, as in the port, whose "cr" kernel path fails the
-# unperturbed draw on the card (its residuals no worse than the plain
-# version's) and whose structured path passes it; algal_bacterial's and
-# orbit_transfer's pass in the JAX package from the fixture's own guess and
-# fail there with every entry of that guess moved by one or two ulps
-# (algal_bacterial: status 2 at N=200 at +1, -1, +2 and -2 ulps;
-# orbit_transfer: 2,000 iterations in each stage at +1 ulp), as they fail
-# under "cr" on the card.
+# solve, the scan kernel on the card. quadrotor's recipe fails under "cr" in
+# both packages on the CPU; space_shuttle's passes or fails with a few-ulp
+# change of its tf guess in the JAX package under either KKT solve;
+# algal_bacterial's and orbit_transfer's pass in the JAX package from the
+# fixture's own guess and fail there under "cr" with every entry of that
+# guess moved by one or two ulps (tools/ci_override_witness.py; PERF.md,
+# ROADMAP.md queue 3). Under the structured solve too these outcomes rest
+# on rounding: over the fixture's guess and five moved draws, the JAX
+# package fails quadrotor's at 1 of 5 moved draws and algal_bacterial's at
+# 2 of 6, and on the card the kernel and its plain version fail some draws
+# of each (PERF.md). Every recipe runs from its fixture's guess.
 CI_CARD_OVERRIDES = {name: dict(kkt_mode="structured")
                      for name in ("quadrotor", "space_shuttle", "orbit_transfer", "algal_bacterial")}
 
@@ -378,16 +418,20 @@ SHARD_TIMED_SOLVES = 5
 SHARD_CHAINS = {"tick": (P_TICK, BS_TICK, WB_TICK, B), "goddard": (P_GD, BS_GD, WB_GD, 1)}
 SHARD_TIMEOUT = 600.0
 # phase 15: BASELINE config 4 at full width (N=500: P=512, bs=11, wb=13) and
-# batch (B=2048); the nominal on the CR solve (7.9 s, the structured one
-# ~210 s) and no diagnostics (the stage split's ~125 s of profiling and
-# attribution, the alignment witness's ~120 s; the script's own run takes
-# them) keep the phase near 180 s (PERF.md)
-ORBIT_CFG = dict(N=500, B=2048, nominal_mode="cr", diagnostics=False)
+# batch (B=2048); the nominal on the structured solve, the script's own (the
+# scan kernel; on PyTorch's plain scan it took ~210 s, PERF.md), and no
+# diagnostics (the stage split's ~125 s of profiling and attribution, the
+# alignment witness's ~120 s; the script's own run takes them)
+ORBIT_CFG = dict(N=500, B=2048, nominal_mode="structured", diagnostics=False)
 # phase 17: BASELINE config 5 through multihost.run in a one-rank NCCL world,
 # (per-card batch, timed ticks) a problem; the script's own run (`python -m
 # ctdirect_tpu_torch.multihost --nproc 4`) takes cart-pole at its full
 # per-card batch on 1, 2 and 4 cards
 MULTIHOST_SIZES = {"double_integrator_minenergy": (512, 10), "cartpole": (1024, 5)}
+# phase 18: the single-solve latency lab (ctdirect_tpu_torch.latency_lab, its
+# problems and four configs) at this N, each config a first call and this
+# many replays
+LAB_N, LAB_REPS = 1000, 1
 
 
 def ci_fixtures(names):
@@ -409,31 +453,33 @@ def card_line():
     return out
 
 
-def random_chain(P, bs, wb, B, dtype, seed=0):
+def random_chain(P, bs, wb, B, dtype, seed=0, shift=None):
     """The tests' random well-conditioned symmetric chain (the CR recurrences
     assume symmetric A and F), lane-minor, on the card."""
     from torch_helpers import random_chain_lanes
 
-    host = random_chain_lanes(P, bs, wb, B, seed=seed)
+    host = random_chain_lanes(P, bs, wb, B, seed=seed, shift=shift)
     return tuple(torch.tensor(x, dtype=dtype, device="cuda") for x in host)
+
+
+def event_ms(fn):
+    """CUDA-event ms of one call of fn."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
 
 
 def median_ms(fn, calls=20, budget_ms=None):
     """Median CUDA-event ms of `calls` calls after a warm-up call; with
     `budget_ms`, fewer calls (at least 3) where the warm-up says they would
     take longer."""
-    def once():
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    first = once()
+    first = event_ms(fn)
     if budget_ms is not None:
         calls = max(3, min(calls, int(budget_ms / max(first, 1e-3))))
-    return float(np.median([once() for _ in range(calls)]))
+    return float(np.median([event_ms(fn) for _ in range(calls)]))
 
 
 def grid_per_solve(P):
@@ -586,22 +632,7 @@ def phase_kernel_vs_plain(kernel, old=None):
         ms = median_ms(lambda: kernel(*chain))
         split = launch_split(kernel, chain)
         plain_ms = median_ms(lambda: cr_solve_lanes(*chain), budget_ms=PLAIN_BUDGET_MS)
-        n = P * bs + wb
-        lib_b = nb if nb * n * n * itemsize <= 8e9 else min(nb, LIBRARY_MAX_B)
-        lib_p = P
-        while lib_b * (lib_p * bs + wb) ** 2 * itemsize > LIBRARY_MAX_BYTES:
-            lib_p //= 2
-        lib_n = lib_p * bs + wb
-        # the chain's first lib_p blocks (F and rb, chain[3] and chain[5], have no block axis)
-        K, rhs = dense_system(tuple(x if i in (3, 5) else x[:lib_p] for i, x in enumerate(chain)), lib_b)
-        if lib_p == P:
-            lib_err = (torch.linalg.solve(K, rhs)[:, : P * bs, 0]
-                       - Xp[..., :lib_b].movedim(-1, 0).reshape(lib_b, -1)).abs().max().item()
-            lib_note = f"max diff to plain {lib_err:.2e}"
-        else:
-            lib_note = f"the chain's first {lib_p} blocks: {n}^2 would pass {LIBRARY_MAX_BYTES / 1e9:g} GB"
-        library_ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5 if lib_p == P else 3)
-        del K, rhs
+        library_ms, lib_b, lib_p, lib_n, lib_note = library_yardstick(chain, Xp, nb)
         bound_ms, bound_by, nbytes, flops = bound(dtype, P, bs, wb, nb)
         wpb = plan[1][2] // 32
         form = f"level-parallel, {wpb} warp(s) per block at the first level"
@@ -647,11 +678,153 @@ def shape_ms(kres, dtype, P, bs, wb, nb):
     return next(r["ms"] for r in kres if (r["dtype"], r["P"], r["bs"], r["wb"], r["B"]) == (tag, P, bs, wb, nb))
 
 
-def phase_front_door(ct, get_problem):
+def scan_bound(dtype, N, bs, wb, nb):
+    """(bound ms, what sets it, bytes, flops, latency floor ms) of one scan
+    solve of nb chains: each input read once and each output written once,
+    over the HBM rate; the operations of the block elimination over
+    PEAK_FLOP_S. Per block: the inverse (2 bs^3), Ainv E and Ainv r (2 bs^2
+    wb + 2 bs^2), the border terms (2 bs wb^2 + 2 bs wb), the back sweep
+    (4 bs^2 + 2 bs wb); per block after the first, C and the Schur updates
+    of A, E and r (4 bs^3 + 2 bs^2 wb + 2 bs^2); then the border solve (2
+    wb^3/3 + 2 wb^2). The latency floor: one chain's operations at one SM's
+    share of the peak (its N steps run in order on one SM)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * nb * (N * (bs * bs + bs * wb + 2 * bs) + (N - 1) * bs * bs + wb * wb + 2 * wb)
+    chain = (N * (2 * bs**3 + 2 * bs * bs * wb + 2 * bs * wb * wb + 6 * bs * bs + 4 * bs * wb)
+             + (N - 1) * (4 * bs**3 + 2 * bs * bs * wb + 2 * bs * bs) + 2 * wb**3 / 3 + 2 * wb * wb)
+    flops = nb * chain
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S[dtype] * 1e3
+    floor = chain / (PEAK_FLOP_S[dtype] / SM_COUNT) * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, flops, floor
+    return t_ops, "operations", nbytes, flops, floor
+
+
+def library_yardstick(chain, X, lanes):
+    """torch.linalg.solve of a lane-minor chain's first `lanes` instances as
+    dense matrices (at most LIBRARY_MAX_B where all would pass 8 GB; where
+    they would pass LIBRARY_MAX_BYTES, of the chain's first P' blocks, P'
+    the largest power of two within it): (ms, instances, blocks, n, note);
+    with all the blocks, the note holds the max difference to X, the plain
+    solution (lane-minor)."""
+    P, bs, _, nb = chain[0].shape
+    wb = chain[2].shape[2]
+    itemsize = chain[0].element_size()
+    n = P * bs + wb
+    lib_b = nb if nb * n * n * itemsize <= 8e9 else min(nb, LIBRARY_MAX_B)
+    lib_p = P
+    if lib_b * n * n * itemsize > LIBRARY_MAX_BYTES:
+        lib_p = 1 << (P.bit_length() - 1)
+        while lib_b * (lib_p * bs + wb) ** 2 * itemsize > LIBRARY_MAX_BYTES:
+            lib_p //= 2
+    lib_n = lib_p * bs + wb
+    # the chain's first lib_p blocks (F and rb, chain[3] and chain[5], have no block axis)
+    K, rhs = dense_system(tuple(x if i in (3, 5) else x[:lib_p] for i, x in enumerate(chain)), lib_b)
+    if lib_p == P:
+        err = (torch.linalg.solve(K, rhs)[:, : P * bs, 0]
+               - X[..., :lib_b].movedim(-1, 0).reshape(lib_b, -1)).abs().max().item()
+        note = f"max diff to plain {err:.2e}"
+    else:
+        note = f"the chain's first {lib_p} blocks: {n}^2 would pass {LIBRARY_MAX_BYTES / 1e9:g} GB"
+    ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5 if lib_p == P else 3)
+    del K, rhs
+    return ms, lib_b, lib_p, lib_n, note
+
+
+def phase_scan_vs_plain(scan):
+    """The scan kernel against its plain version (`scan_solve_plain`, the
+    structured solve's _scan_solve) at SCAN_SHAPES: one launch per call,
+    agreement (max abs difference / (1 + max |x|) <= SCAN_TOL), the
+    block-matvec residual of every instance, the device memory across the
+    first launch, and the times of the kernel, the plain version and the
+    library call (library_yardstick), beside the bound and the latency
+    floor (scan_bound). Returns one record per shape."""
+    from torch_helpers import lane_residuals
+
+    from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_plain
+
+    results = []
+    for dtype, N, bs, wb, nb in SCAN_SHAPES:
+        lane_chain = random_chain(N, bs, wb, nb, dtype, shift=4.0 + bs)  # lane-minor, N blocks
+        A, Bp, E, F, r, rb = (x.movedim(-1, 0).contiguous() for x in lane_chain)
+        chain = (A, Bp[:, : N - 1].contiguous(), E, F, r, rb)
+        torch.cuda.synchronize()
+        free0, reserved0 = torch.cuda.mem_get_info()[0], torch.cuda.memory_reserved()
+        n0 = scan.launches
+        X, xb = scan(*chain)
+        torch.cuda.synchronize()
+        if scan.launches != n0 + 1:
+            raise AssertionError(f"scan kernel at N={N}: {scan.launches - n0} launches counted for one call")
+        free1, total = torch.cuda.mem_get_info()
+        outside = (free0 - free1) - (torch.cuda.memory_reserved() - reserved0)
+        if not outside < 2**30:
+            raise AssertionError(f"scan kernel at N={N} bs={bs} wb={wb} B={nb}: the first launch took "
+                                 f"{outside / 2**30:.2f} GiB of device memory outside PyTorch's allocator")
+        Xp, xbp = scan_solve_plain(*chain)
+        torch.cuda.synchronize()
+        for name, got, want in (("X", X, Xp), ("xb", xb, xbp)):
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"scan kernel {dtype} at N={N}: {name} not finite or of shape "
+                                     f"{tuple(got.shape)}")
+        err = max((X - Xp).abs().max().item(), (xb - xbp).abs().max().item())
+        scale = 1.0 + max(Xp.abs().max().item(), xbp.abs().max().item())
+        if not err <= SCAN_TOL[dtype] * scale:
+            raise AssertionError(f"scan kernel vs plain {dtype} at N={N} bs={bs} wb={wb} B={nb}: max abs err "
+                                 f"{err:.3e} > {SCAN_TOL[dtype]:.0e} x {scale:.3g}")
+        resid = lane_residuals(lane_chain, X.permute(1, 2, 0), xb.T).max().item()
+        if not resid < RESID_TOL[dtype]:
+            raise AssertionError(f"scan kernel {dtype} at N={N} bs={bs} wb={wb} B={nb}: residual {resid:.3e}")
+        ms = median_ms(lambda: scan(*chain))
+        # the plain version's calls take seconds at the long chains: the comparison call
+        # above is their warm-up, then 1-20 calls within PLAIN_BUDGET_MS
+        plain = [event_ms(lambda: scan_solve_plain(*chain))]
+        plain += [event_ms(lambda: scan_solve_plain(*chain))
+                  for _ in range(min(20, int(PLAIN_BUDGET_MS / max(plain[0], 1e-3))) - 1)]
+        plain_ms = float(np.median(plain))
+        library_ms, lib_b, lib_n_blocks, lib_n, lib_note = library_yardstick(lane_chain, Xp.permute(1, 2, 0), nb)
+        bound_ms, bound_by, nbytes, flops, floor_ms = scan_bound(dtype, N, bs, wb, nb)
+        smem = scan.smem_bytes(bs, wb, torch.finfo(dtype).bits // 8)
+        log(f"scan kernel {dtype} at N={N} bs={bs} wb={wb} B={nb}: max abs err {err:.3e} vs plain (scale "
+            f"{scale:.3g}), residual {resid:.3e} (every instance); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+            f"library torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={lib_n}, {lib_note}) (CUDA events, "
+            f"median of 20 / 1-20 / 5 or 3); bound {1e3 * bound_ms:.3f} us set by {bound_by} ({nbytes / 1e6:.3f} "
+            f"MB, {flops / 1e9:.4f} GFLOP), kernel at {100 * bound_ms / ms:.3f}% of it; latency floor (one "
+            f"chain's operations on one SM) {1e3 * floor_ms:.3f} us, kernel at {100 * floor_ms / ms:.2f}% of "
+            f"it; one launch of {nb} CTAs x 128 threads, {smem} B of shared memory each; device memory free "
+            f"{free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of {total / 2**30:.2f}, {outside / 2**20:.1f} MiB "
+            f"outside PyTorch's allocator")
+        results.append(dict(dtype=str(dtype).replace("torch.", ""), N=N, bs=bs, wb=wb, B=nb, max_abs_err=err,
+                            scale=scale, residual=resid, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            library_B=lib_b, library_N=lib_n_blocks, bound_us=1e3 * bound_ms, bound_by=bound_by,
+                            floor_us=1e3 * floor_ms, smem_bytes=smem, mem_outside_allocator_mib=outside / 2**20))
+        del chain, lane_chain, A, Bp, E, F, r, rb, X, xb, Xp, xbp
+    return results
+
+
+def scan_record(path, dtype, launches, solves):
+    """One path's scan kernel launches, which must be its structured block
+    solves (warm-ups included), one CUDA launch each."""
+    if not launches or launches != solves:
+        raise AssertionError(f"{path}: {launches} scan kernel launches for {solves} structured block solves")
+    return dict(path=path, dtype=str(dtype).replace("torch.", ""), launches=launches)
+
+
+def solve_record(path, scan, sol):
+    """scan_record of a compiled solve_docp / ct.solve on a new DOCP, from its
+    infos (block solves + those of the segment warm-ups)."""
+    return scan_record(path, torch.float64, scan.launches,
+                       sol.infos["kkt_block_solves"] + sol.infos["kkt_warmup_block_solves"])
+
+
+def phase_front_door(ct, get_problem, scan):
+    """ct.solve(double integrator, N=100, trapeze) against its analytic
+    oracles; its structured block solves on the scan kernel."""
     t0 = time.perf_counter()
     p = get_problem("double_integrator_minenergy")
+    scan.reset_counts()
     sol = ct.solve(p.ocp, grid_size=N, scheme="trapeze", tol=1e-8, device="cuda")
     secs = time.perf_counter() - t0
+    rec = solve_record("front_door_trapeze", scan, sol)
     if not sol.successful:
         raise AssertionError(f"front door: {sol.message}")
     t = sol.time_grid
@@ -664,7 +837,9 @@ def phase_front_door(ct, get_problem):
     tm = 0.5 * (t[:-1] + t[1:])
     np.testing.assert_allclose(Pc[:-1, 1], 12 - 24 * tm, rtol=1e-2, atol=0.05)
     log(f"front door: solve N={N} trapeze on cuda: status {sol.status}, {sol.iterations} "
-        f"iterations, objective {sol.objective:.10g}, p(0) = {Pc[0]}, {secs:.2f} s wall")
+        f"iterations, objective {sol.objective:.10g}, p(0) = {Pc[0]}, {secs:.2f} s wall; scan kernel launches "
+        f"{rec['launches']} = structured block solves (warm-ups included)")
+    return rec
 
 
 def tick_run(tick, states, xs, warmup):
@@ -747,7 +922,22 @@ def cold_start_graphs(docp, options):
             f"iterations, {run.stats.host_syncs} host syncs")
 
 
-def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
+def cold_start(ctrl, docp, scan, path, **kw):
+    """A controller's cold start (the compiled structured solve), its scan
+    kernel launches held to its block solves; returns (warm state, s, the
+    path's record)."""
+    from ctdirect_tpu_torch.solver.interface import _get_solver
+
+    scan.reset_counts()
+    t0 = time.perf_counter()
+    warm = ctrl.cold_start(**kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return warm, secs, scan_record(path, torch.float64, scan.launches,
+                                   _get_solver(docp, kw["options"]).kkt.block_solves)
+
+
+def phase_main_path(ct, get_problem, kernel, scan, solve_dtype, xs):
     from ctdirect_tpu_torch.parallel.mpc import MPCController, broadcast_state
 
     p = get_problem("double_integrator_minenergy")
@@ -758,15 +948,13 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
                              kkt_solve_dtype=solve_dtype, device="cuda")
 
     ctrl = make_ctrl()
-    t0 = time.perf_counter()
     cold_opts = ct.IPMOptions(tol=1e-8, max_iter=60)
-    warm = ctrl.cold_start(options=cold_opts)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
-
     name = "f32" if solve_dtype == torch.float32 else "f64"
-    log(f"main path, {name} block solve: cold start {cold_s:.2f} s ({cold_start_graphs(docp, cold_opts)}); "
-        f"{len(xs)} ticks x B={B} N={N} x {ITERS} Newton steps, eager and replayed")
+    warm, cold_s, cold = cold_start(ctrl, docp, scan, f"mpc_cold_start_double_integrator_{name}_run",
+                                    options=cold_opts)
+    log(f"main path, {name} block solve: cold start {cold_s:.2f} s ({cold_start_graphs(docp, cold_opts)}; scan "
+        f"kernel launches {cold['launches']} = structured block solves); {len(xs)} ticks x B={B} N={N} x {ITERS} "
+        f"Newton steps, eager and replayed")
     both = eager_and_replayed(f"{name} block solve", kernel, ctrl, broadcast_state(warm, B), xs, WARMUP_TICKS, B)
     replay = both["replay"]
     u0 = replay["u0s"][-1]
@@ -780,7 +968,7 @@ def phase_main_path(ct, get_problem, kernel, solve_dtype, xs):
                                    replay["launches"] * per),
                        path_record("mpc_tick_double_integrator_eager", solve_dtype, both["eager"]["launches"],
                                    both["eager"]["grid"], both["eager"]["launches"] * per)],
-                u0=u0, ctrl=ctrl, make_ctrl=make_ctrl, states=replay["states"], warm=warm, both=both)
+                scan_paths=[cold], u0=u0, ctrl=ctrl, make_ctrl=make_ctrl, states=replay["states"], warm=warm, both=both)
 
 
 def ticking(tick, states, xs, ticks, want=None):
@@ -879,11 +1067,14 @@ def path_record(path, dtype, launches, grid, want_grid):
     return dict(path=path, dtype=str(dtype).replace("torch.", ""), launches=launches, grid_launches=grid)
 
 
-def phase_front_door_default(ct, get_problem, device="cuda"):
-    """ct.solve with no scheme= (midpoint, the default) against the oracles."""
+def phase_front_door_default(ct, get_problem, scan, device="cuda"):
+    """ct.solve with no scheme= (midpoint, the default) against the oracles;
+    its structured block solves on the scan kernel."""
     t0 = time.perf_counter()
+    scan.reset_counts()
     sol = ct.solve(get_problem("double_integrator_minenergy").ocp, grid_size=N, tol=1e-8, device=device)
     secs = time.perf_counter() - t0
+    rec = solve_record("front_door_midpoint", scan, sol)
     if not sol.successful:
         raise AssertionError(f"default-scheme front door: {sol.message}")
     t = sol.time_grid
@@ -897,7 +1088,8 @@ def phase_front_door_default(ct, get_problem, device="cuda"):
     np.testing.assert_allclose(Pc[:-1, 1], 12 - 24 * tm, rtol=1e-2, atol=0.05)
     log(f"front door, default scheme (midpoint): solve N={N} on {device}: status "
         f"{sol.status}, {sol.iterations} iterations, objective {sol.objective:.10g}, p(0) = {Pc[0]}, "
-        f"{secs:.2f} s wall")
+        f"{secs:.2f} s wall; scan kernel launches {rec['launches']} = structured block solves (warm-ups included)")
+    return rec
 
 
 def cartpole_x0(rng, batch):
@@ -906,7 +1098,7 @@ def cartpole_x0(rng, batch):
     return 0.02 * rng.standard_normal((batch, 4)) * np.array([1.0, 1.0, 0.5, 0.5])
 
 
-def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
+def phase_cartpole_tick(ct, get_problem, kernel, scan, device="cuda"):
     from ctdirect_tpu_torch.parallel.mpc import MPCController, broadcast_state
 
     prob = get_problem("cartpole")
@@ -917,18 +1109,15 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
                              device=device)
 
     ctrl = make_ctrl()
-    t0 = time.perf_counter()
     cold_opts = ct.IPMOptions(tol=1e-8, max_iter=200)
-    warm = ctrl.cold_start(options=cold_opts, init=prob.init)
-    torch.cuda.synchronize()
-    cold_s = time.perf_counter() - t0
+    warm, cold_s, cold = cold_start(ctrl, docp, scan, "mpc_cold_start_cartpole", options=cold_opts, init=prob.init)
     states0 = broadcast_state(warm, CP_B)
     rng = np.random.default_rng(0)
     xs = [torch.tensor(cartpole_x0(rng, CP_B), dtype=torch.float64, device=device)
           for _ in range(CP_WARMUP + CP_TICKS)]
 
-    log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s ({cold_start_graphs(docp, cold_opts)}); "
-        f"{len(xs)} ticks x B={CP_B} N={CP_N} x {ITERS} Newton steps, eager and replayed")
+    log(f"cart-pole tick, f64 block solve: cold start {cold_s:.2f} s ({cold_start_graphs(docp, cold_opts)}; scan "
+        f"kernel launches {cold['launches']} = structured block solves); {len(xs)} ticks x B={CP_B} N={CP_N} x {ITERS} Newton steps, eager and replayed")
     both = eager_and_replayed("cart-pole", kernel, ctrl, states0, xs, CP_WARMUP, CP_B)
     replay = both["replay"]
     u0, states = replay["u0s"][-1], replay["states"]
@@ -946,7 +1135,7 @@ def phase_cartpole_tick(ct, get_problem, kernel, device="cuda"):
                                    replay["launches"] * per),
                        path_record("mpc_tick_cartpole_eager", torch.float64, both["eager"]["launches"],
                                    both["eager"]["grid"], both["eager"]["launches"] * per)],
-                docp=docp, warm=warm, both=both, split=split)
+                scan_paths=[cold], docp=docp, warm=warm, both=both, split=split)
 
 
 def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
@@ -1293,14 +1482,16 @@ def trace_cr_events(path):
 def ci_fixture(name):
     """Phase 13's solve of one fixture, in a worker process of its pool:
     its recipe on the card with the kernel counts reset just before and read
-    just after, the oracle's verdict, and for CI_TRACED the CR kernel's CUDA
-    events in its Chrome trace."""
+    just after (its block solves on the CR kernel under "cr", on the scan
+    kernel under "structured", and none on the other), the oracle's verdict,
+    and for CI_TRACED the CR kernel's CUDA events in its Chrome trace."""
     from torch.profiler import ProfilerActivity
 
     import ctdirect_tpu_torch as ct
     from ctdirect_tpu_torch.problems import get_problem
     from ctdirect_tpu_torch.solver.cr_kernel import BUILD_DIR
     from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched as kernel
+    from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched as scan
     from ctdirect_tpu_torch.utils.profiling import TRACE_FILE, Timings, timed, trace
 
     torch.set_num_threads(1)
@@ -1309,26 +1500,32 @@ def ci_fixture(name):
     trace_dir = BUILD_DIR / f"trace_{name}"
     timings = Timings()
     kernel.reset_counts()
+    scan.reset_counts()
     with contextlib.ExitStack() as stack:
         if name == CI_TRACED:
             stack.enter_context(trace(str(trace_dir), [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         with timed(name, timings, sync=torch.device("cuda")):
             sols, grids = ci_solve(ct, prob, cfg, opts)
-    launches, grid = kernel.launches, kernel.grid_launches
-    # each stage's DOCP is new, so each solve captures its graphs (warm-ups included)
-    solves = [s.infos["kkt_block_solves"] + s.infos["kkt_warmup_block_solves"] for s in sols]
+    launches, grid, scan_launches = kernel.launches, kernel.grid_launches, scan.launches
+    # each stage's DOCP is new, so each solve captures its graphs (warm-ups
+    # included); the dense solve has no block solves
+    solves = [s.infos.get("kkt_block_solves", 0) + s.infos.get("kkt_warmup_block_solves", 0) for s in sols]
     cr = opts.kkt_mode == "cr"
     want = (sum(solves), sum(k * grid_per_solve(chain_blocks(g)) for k, g in zip(solves, grids))) if cr else (0, 0)
-    if (launches, grid) != want:
-        raise AssertionError(f"fixture CI {name}: kernel launched {launches} times ({grid} CUDA launches), "
-                             f"want {want[0]} ({want[1]}) for {sum(solves)} block solves with kkt_mode {opts.kkt_mode}")
+    want_scan = sum(solves) if opts.kkt_mode == "structured" else 0
+    if (launches, grid, scan_launches) != (*want, want_scan):
+        raise AssertionError(f"fixture CI {name}: CR kernel launched {launches} times ({grid} CUDA launches), scan "
+                             f"kernel {scan_launches} times; want {want[0]} ({want[1]}) and {want_scan} for "
+                             f"{sum(solves)} block solves with kkt_mode {opts.kkt_mode}")
     d = ct.transcribe(prob.ocp, grid_size=4, scheme=cfg.scheme, device="cpu")
     sol = sols[-1]
     return dict(name=name, why=ci_verdict(name, prob, cfg, sol), status=sol.status, objective=sol.objective,
                 stored=prob.obj, maximize=prob.ocp.maximize, iterations=[s.iterations for s in sols], grids=grids,
                 block_solves=solves, wall_s=timings.records[name][-1], launches=launches, grid_launches=grid,
+                scan_launches=scan_launches,
                 captures=[s.infos["captures"] for s in sols], capture_s=sum(s.infos["capture_s"] for s in sols),
-                kkt_mode=opts.kkt_mode, bs=d.bw + d.cw, wb=d.tail_w + d.q + d.n_path + d.n_boundary,
+                kkt_mode=opts.kkt_mode, bs=d.bw + d.cw,
+                wb=d.tail_w + d.q + d.n_path + d.n_boundary,
                 fuel=fuel_integral(sol) if name == "orbit_transfer" else None,
                 cr_events=len(trace_cr_events(trace_dir / TRACE_FILE)) if name == CI_TRACED else None)
 
@@ -1394,8 +1591,9 @@ def phase_fixture_ci(ct, get_problem, problem_names):
                 f"{'' if r['fuel'] is None else ', fuel %.6f' % r['fuel']}, iterations {its}, {r['wall_s']:.2f} s "
                 f"wall{' under torch.profiler' if r['name'] == CI_TRACED else ''}, kkt_mode {r['kkt_mode']}, "
                 f"segment graphs {' + '.join(map(str, r['captures']))} (capture {r['capture_s']:.2f} s), block "
-                f"solves {sum(r['block_solves'])} (warm-ups included), kernel launches {r['launches']} "
-                f"({r['grid_launches']} CUDA launches), bs {r['bs']} wb {r['wb']}")
+                f"solves {sum(r['block_solves'])} (warm-ups included), CR kernel launches {r['launches']} "
+                f"({r['grid_launches']} CUDA launches), scan kernel launches {r['scan_launches']}, bs {r['bs']} "
+                f"wb {r['wb']}")
             rows.append(r)
     elapsed = time.perf_counter() - t0
     rows.sort(key=lambda r: r["name"])
@@ -1409,14 +1607,20 @@ def phase_fixture_ci(ct, get_problem, problem_names):
     if failed:
         raise AssertionError(f"fixture CI: the JAX CI's oracle fails on the card for {failed}")
     total, grid_total = sum(r["launches"] for r in rows), sum(r["grid_launches"] for r in rows)
+    structured = [r for r in rows if r["kkt_mode"] == "structured"]
+    scan_total = sum(r["scan_launches"] for r in structured)
     log(f"fixture CI: {len(rows)}/{len(names)} ok under the JAX CI's oracle, f64; {elapsed:.1f} s in "
         f"{CI_WORKERS} processes on the card ({sum(r['wall_s'] for r in rows):.1f} s of solve walls, "
         f"{sum(r['capture_s'] for r in rows):.1f} s of it capturing {sum(sum(r['captures']) for r in rows)} "
         f"segment graphs); "
-        f"{sum(sum(r['iterations']) for r in rows)} iterations; {total} kernel launches ({grid_total} CUDA launches)")
+        f"{sum(sum(r['iterations']) for r in rows)} iterations; {total} CR kernel launches ({grid_total} CUDA "
+        f"launches), {scan_total} scan kernel launches ({', '.join(r['name'] for r in structured)}: structured)")
     want = sum(sum(k * grid_per_solve(chain_blocks(g)) for k, g in zip(r["block_solves"], r["grids"]))
                for r in rows if r["kkt_mode"] == "cr")
-    return dict(path=path_record("fixture_ci", torch.float64, total, grid_total, want), rows=rows, elapsed_s=elapsed)
+    return dict(path=path_record("fixture_ci", torch.float64, total, grid_total, want),
+                scan_path=scan_record("fixture_ci_structured", torch.float64, scan_total,
+                                      sum(sum(r["block_solves"]) for r in structured)),
+                rows=rows, elapsed_s=elapsed)
 
 
 def _host_ms(fn):
@@ -1673,15 +1877,15 @@ def phase_nccl_graphs(warm, xs, ref_u0, gd_f64_objective):
 
 def phase_orbit_scenarios(kernel):
     """Phase 15: BASELINE config 4 through ctdirect_tpu_torch.orbit_scenarios'
-    run and checks at full width (ORBIT_CFG). Returns the batch's kernel
-    records (and the nominal's, where it runs the CR solve)."""
+    run and checks at full width (ORBIT_CFG). Returns the batch's CR kernel
+    records and the nominal's (its kernel's: the scan kernel's under
+    "structured")."""
     from ctdirect_tpu_torch import orbit_scenarios
 
     cfg = dict(orbit_scenarios.DEFAULT_CFG, **ORBIT_CFG)
     log(f"BASELINE config 4: orbit_scenarios.run at N={cfg['N']}, B={cfg['B']}, the nominal on the "
-        f"{cfg['nominal_mode']} KKT solve, no diagnostics (the script's own run: the "
-        f"{orbit_scenarios.DEFAULT_CFG['nominal_mode']} nominal, the stage split and the alignment witness; "
-        f"PERF.md)")
+        f"{cfg['nominal_mode']} KKT solve, no diagnostics (the script's own run adds the stage split and the "
+        f"alignment witness; PERF.md)")
     result = orbit_scenarios.report(orbit_scenarios.run(cfg), cfg, log=log)
     per = result["grid_per_solve"]
     names = {"eager": "batch_solve_orbit_eager", "first graphed call": "batch_solve_orbit_first_call",
@@ -1689,10 +1893,51 @@ def phase_orbit_scenarios(kernel):
     paths = [path_record(names[tag], torch.float64, c["launches"], c["grid_launches"], c["launches"] * per)
              for tag, c in result["calls"].items()]
     nom = result["nominal"]
-    if nom["launches"]:
+    solves = nom["block_solves"] + nom["warmup_block_solves"]
+    if nom["mode"] == "cr":
         paths.append(path_record("orbit_nominal", torch.float64, nom["launches"], nom["grid_launches"],
                                  nom["launches"] * per))
-    return paths
+        return dict(paths=paths, scan_paths=[])
+    return dict(paths=paths, scan_paths=[scan_record("orbit_nominal_structured", torch.float64,
+                                                     nom["scan_launches"], solves)])
+
+
+def phase_lab(kernel, scan):
+    """Phase 18: the single-solve latency lab (ctdirect_tpu_torch.latency_lab's
+    run_lab, report and checks) at LAB_N, its problems and four configs,
+    LAB_REPS replays each, with both kernels' counts set to 0 just before
+    and read just after: the structured configs' block solves on the scan
+    kernel, the cr configs' on the CR kernel (3 + 3 log2 P CUDA launches
+    each). Returns the CR and the scan kernel's records."""
+    from ctdirect_tpu_torch import latency_lab
+
+    log(f"latency lab: {', '.join(latency_lab.PROBLEMS)} at N={LAB_N} (trapeze), configs "
+        f"{', '.join(latency_lab.CONFIGS)}, tol {latency_lab.TOL:g}, <= {latency_lab.MAX_ITER} iterations; a first "
+        f"call and {LAB_REPS} replay(s) each")
+    kernel.reset_counts()
+    scan.reset_counts()
+    rows = latency_lab.run_lab(latency_lab.PROBLEMS, [LAB_N], latency_lab.CONFIGS, device="cuda", reps=LAB_REPS,
+                               log=log)
+    launches, grid, scan_launches = kernel.launches, kernel.grid_launches, scan.launches
+    summary = latency_lab.report(rows, log=log)
+    if not summary["ok"]:
+        raise AssertionError(f"latency lab: rows failing a check: {summary['bad']}")
+    per = grid_per_solve(chain_blocks(LAB_N))
+    cr_paths, scan_paths = [], []
+    for r in rows:
+        calls = r["launches_first"] + LAB_REPS * r["launches"]
+        path = f"lab_{r['problem']}_N{LAB_N}_{r['mode']}_{r['dtype']}"
+        dtype = torch.float32 if r["dtype"] == "f32" else torch.float64
+        if r["mode"] == "cr":
+            cr_paths.append(path_record(path, dtype, calls, calls * per, calls * per))
+        else:
+            scan_paths.append(scan_record(path, dtype, calls, calls))
+    want = (sum(p["launches"] for p in cr_paths), sum(p["launches"] for p in cr_paths) * per,
+            sum(p["launches"] for p in scan_paths))
+    if (launches, grid, scan_launches) != want:
+        raise AssertionError(f"latency lab: CR kernel {launches} launches ({grid} CUDA launches), scan kernel "
+                             f"{scan_launches}; the rows count {want}")
+    return dict(paths=cr_paths, scan_paths=scan_paths, rows=rows)
 
 
 def phase_multihost(kernel, warm):
@@ -1767,11 +2012,13 @@ def ptxas_report(build_log):
     return rows
 
 
-def kernel_entries(kres, paths):
-    """One JSON entry per kernel entry point (f32, f64): its launches (block
-    solves) and CUDA launches on every path, and the times, bounds and
-    library times that phase 3 measured at each shape; the entry's own
-    numbers are those of its first shape (the MPC tick)."""
+def kernel_entries(kres, paths, sres, scan_paths):
+    """One JSON entry per kernel entry point (the CR kernel's and the scan
+    kernel's, f32 and f64): its launches (block solves) on every path (the
+    CR kernel's CUDA launches too), and the times, bounds and library times
+    that phase 3 measured at each shape; the entry's own numbers are those
+    of its first shape (the CR kernel: the MPC tick; the scan kernel:
+    quadrotor's chain)."""
     entries = []
     for dtype in sorted({r["dtype"] for r in kres}):
         shapes = [r for r in kres if r["dtype"] == dtype]
@@ -1784,6 +2031,19 @@ def kernel_entries(kres, paths):
             launches=sum(p["launches"] for p in on), grid_launches=sum(p["grid_launches"] for p in on),
             max_abs_err=max(r["max_abs_err"] for r in shapes), ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_us"] / 1e3, bound_by=first["bound_by"], library_ms=first["library_ms"],
+            paths=on, shapes=shapes))
+    for dtype in ("float64", "float32"):
+        shapes = [r for r in sres if r["dtype"] == dtype]
+        on = [p for p in scan_paths if p["dtype"] == dtype]
+        first = shapes[0]
+        entries.append(dict(
+            name=f"scan_solve_{dtype.replace('float', 'f')}", route="cuda",
+            source="ctdirect_tpu_torch/csrc/scan_solve.cu",
+            replaces="no Pallas kernel: ctdirect_tpu/native/__init__.py:71 (csrc/blocktri.cpp) and "
+                     "ctdirect_tpu/solver/structured_kkt.py:665 (lax.scan)",
+            launches=sum(p["launches"] for p in on), max_abs_err=max(r["max_abs_err"] for r in shapes),
+            ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_us"] / 1e3,
+            bound_by=first["bound_by"], library_ms=first["library_ms"], floor_ms=first["floor_us"] / 1e3,
             paths=on, shapes=shapes))
     return entries
 
@@ -1802,13 +2062,19 @@ def main():
     import ctdirect_tpu_torch as ct
     from ctdirect_tpu_torch.problems import get_problem, problem_names
     from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched as kernel
+    from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched as scan
 
     card = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    path, build_s, build_log = kernel.library(verbose=True)
-    log(f"built {path.name} in {build_s:.2f} s")
-    ptxas = ptxas_report(build_log)
+    # one nvcc per kernel source, both started together
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(k.library, verbose=True) for k in (kernel, scan)]
+        builds = [b.result() for b in builds]
+    ptxas = []
+    for path, build_s, build_log in builds:
+        log(f"built {path.name} in {build_s:.2f} s")
+        ptxas += ptxas_report(build_log)
 
     t_phase = time.perf_counter()
 
@@ -1819,14 +2085,15 @@ def main():
 
     phase_done("phases 1-2")
     kres = phase_kernel_vs_plain(kernel, old_kernel(args.old) if args.old else None)
+    sres = phase_scan_vs_plain(scan)
     phase_done("phase 3")
-    phase_front_door(ct, get_problem)
+    scan_paths = [phase_front_door(ct, get_problem, scan)]
     phase_done("phase 4")
 
     rng = np.random.default_rng(0)
     xs = [torch.tensor(0.03 * rng.standard_normal((B, 2)), dtype=torch.float64, device="cuda")
           for _ in range(WARMUP_TICKS + TIMED_TICKS)]
-    main = {dt: phase_main_path(ct, get_problem, kernel, dt, xs) for dt in (torch.float32, torch.float64)}
+    main = {dt: phase_main_path(ct, get_problem, kernel, scan, dt, xs) for dt in (torch.float32, torch.float64)}
     du = (main[torch.float32]["u0"] - main[torch.float64]["u0"]).abs().max().item()
     if not du < 1e-8:
         raise AssertionError(f"f32 vs f64 block solve: final u0 differ by {du:.3e}")
@@ -1836,9 +2103,9 @@ def main():
         phase_device_split("f32" if dt == torch.float32 else "f64", m["ctrl"], m["make_ctrl"], m["states"], xs)
     phase_done("phase 6")
 
-    phase_front_door_default(ct, get_problem)
+    scan_paths.append(phase_front_door_default(ct, get_problem, scan))
     phase_done("phase 7")
-    tick = phase_cartpole_tick(ct, get_problem, kernel)
+    tick = phase_cartpole_tick(ct, get_problem, kernel, scan)
     phase_done("phase 8")
     batch = phase_cartpole_batch(ct, kernel, tick["docp"], tick["warm"])
     phase_done("phase 9")
@@ -1848,7 +2115,7 @@ def main():
     phase_done("phase 11")
     grid = phase_grid_continuation(ct, get_problem, kernel, goddard["sols"]["f32"])
     phase_done("phase 12")
-    fixture_ci = phase_fixture_ci(ct, get_problem, problem_names)["path"]
+    fixture_ci = phase_fixture_ci(ct, get_problem, problem_names)
     phase_done("phase 13")
     sharded = phase_sharded(kernel, kres, main, goddard["sols"]["f64"].objective, xs)
     phase_done("phase 14")
@@ -1859,12 +2126,17 @@ def main():
     config5 = phase_multihost(kernel, {"double_integrator_minenergy": main[torch.float64]["warm"],
                                        "cartpole": tick["warm"]})
     phase_done("phase 17")
+    lab = phase_lab(kernel, scan)
+    phase_done("phase 18")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
-             *goddard["paths"], suite, grid, fixture_ci, *sharded, *orbit, ladder, *config5]
-    log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernel's build included)")
+             *goddard["paths"], suite, grid, fixture_ci["path"], *sharded, *orbit["paths"], ladder, *config5,
+             *lab["paths"]]
+    scan_paths += [*main[torch.float32]["scan_paths"], *main[torch.float64]["scan_paths"], *tick["scan_paths"],
+                   fixture_ci["scan_path"], *orbit["scan_paths"], *lab["scan_paths"]]
+    log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernels' builds included)")
     print(card)
-    print(json.dumps({"kernels": kernel_entries(kres, paths), "ptxas": ptxas}))
+    print(json.dumps({"kernels": kernel_entries(kres, paths, sres, scan_paths), "ptxas": ptxas}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 

@@ -182,15 +182,19 @@ def _nominal(docp, prob, cfg, kernel):
     import ctdirect_tpu_torch as ct
     from ctdirect_tpu_torch.solver.interface import _get_solver, solve_docp
 
+    from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched
+
     opts = ct.IPMOptions(kkt_mode=cfg["nominal_mode"], **NOMINAL_OPTS)
     kernel.reset_counts()
+    scan_solve_batched.reset_counts()
     sol, wall = _host_s(lambda: solve_docp(docp, init=prob.init, options=opts), docp.device)
     stats = _get_solver(docp, opts).stats
     out = dict(mode=cfg["nominal_mode"], wall_s=wall, status=sol.status, message=sol.message,
-               launches=kernel.launches, grid_launches=kernel.grid_launches,
+               launches=kernel.launches, grid_launches=kernel.grid_launches, scan_launches=scan_solve_batched.launches,
                successful=sol.successful, objective=sol.objective, iterations=sol.iterations,
                host_syncs=stats.host_syncs, batch_iterations=stats.iterations,
-               block_solves=sol.infos.get("kkt_block_solves"), captures=sol.infos.get("captures", 0),
+               block_solves=sol.infos.get("kkt_block_solves"),
+               warmup_block_solves=sol.infos.get("kkt_warmup_block_solves"), captures=sol.infos.get("captures", 0),
                capture_s=sol.infos.get("capture_s", 0.0))
     docp.release_solvers()
     return sol, out
@@ -342,9 +346,16 @@ def report(result: dict, cfg: dict, log=print) -> dict:
         f"{nom['objective']!r} (the JAX package's on the CPU {ref!r}, rel diff {rel:.2e}, bound {NOMINAL_RTOL:g}), "
         f"{nom['iterations']} iterations (the JAX package's: {ref_iters}; not compared), {nom['wall_s']:.3f} s wall "
         f"(first call: capture {nom['capture_s']:.3f} s, {nom['captures']} segment graphs), {per_it:.2f} host syncs "
-        f"per iteration, {nom['block_solves']} block solves, CR kernel launches {nom['launches']} "
-        f"({nom['grid_launches']} CUDA launches)")
+        f"per iteration, {nom['block_solves']} block solves (+ {nom['warmup_block_solves']} in segment warm-ups), "
+        f"CR kernel launches {nom['launches']} ({nom['grid_launches']} CUDA launches), scan kernel launches "
+        f"{nom['scan_launches']}")
     _check(nom["successful"], f"orbit nominal: {nom['message']}")
+    if card:
+        solves = nom["block_solves"] + nom["warmup_block_solves"]
+        want = (solves, 0) if nom["mode"] == "cr" else (0, solves)
+        _check((nom["launches"], nom["scan_launches"]) == want,
+               f"orbit nominal ({nom['mode']}): CR / scan kernel launches {nom['launches']} / {nom['scan_launches']} "
+               f"for {solves} block solves (warm-ups included)")
     _check(rel <= NOMINAL_RTOL, f"orbit nominal: objective {nom['objective']!r} vs the JAX package's {ref!r} "
                                 f"(rel diff {rel:.3e}, bound {NOMINAL_RTOL:g})")
 

@@ -86,33 +86,35 @@ def _nvcc() -> str:
     candidate = Path(cuda_home) / "bin" / "nvcc"
     if candidate.exists():
         return str(candidate)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build the CR kernel")
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): cannot build the kernels")
 
 
-def _flags(verbose: bool):
-    return NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ())
+def _flags(verbose: bool, extra=()):
+    return NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ()) + tuple(extra)
 
 
-def artifact(verbose: bool = False) -> Path:
-    """The cached library of the current source and flags (its compiler log
-    is kept beside it with the suffix .log)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(_flags(verbose)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libcr_solve-{key}.so"
+def artifact(verbose: bool = False, source: Path = SOURCE, extra=()) -> Path:
+    """The cached library of `source` and the flags (its compiler log is
+    kept beside it with the suffix .log)."""
+    key = hashlib.sha256(source.read_bytes() + " ".join(_flags(verbose, extra)).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}-{key}.so"
 
 
-def build(verbose: bool = False):
-    """Compile csrc/cr_solve.cu into BUILD_DIR (cached by source and flags).
+def build(verbose: bool = False, source: Path = SOURCE, extra=()):
+    """Compile `source` (a kernel of csrc/ with a plain C interface; by
+    default csrc/cr_solve.cu) into BUILD_DIR, cached by source and flags.
 
     Returns (library path, build seconds, compiler log); seconds is 0.0 when a
     cached library is reused, and the log is then the one its build kept.
-    verbose adds `-Xptxas -v` (registers, stack frame, spills) to the log."""
-    lib = artifact(verbose)
+    verbose adds `-Xptxas -v` (registers, stack frame, spills) to the log;
+    extra, more nvcc flags (part of the cache key)."""
+    lib = artifact(verbose, source, extra)
     log_path = lib.with_suffix(".log")
     if lib.exists() and log_path.exists():
         return lib, 0.0, log_path.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp, log_tmp = (lib.with_suffix(f".{os.getpid()}.{kind}") for kind in ("tmp", "logtmp"))
-    cmd = [_nvcc(), *_flags(verbose), "-o", str(tmp), str(SOURCE)]
+    cmd = [_nvcc(), *_flags(verbose, extra), "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

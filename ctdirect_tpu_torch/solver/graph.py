@@ -29,18 +29,20 @@ from torch.utils._pytree import tree_leaves, tree_map
 
 from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
 from ctdirect_tpu_torch.solver.ipm import IPMResult
+from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched
 from ctdirect_tpu_torch.solver.structured_kkt import StructuredKKT
 
 
-KERNEL_COUNTERS = ((cr_solve_batched, "launches"), (cr_solve_batched, "grid_launches"))
+KERNEL_COUNTERS = ((cr_solve_batched, "launches"), (cr_solve_batched, "grid_launches"),
+                   (scan_solve_batched, "launches"))
 
 
 def graph_counters(kkt):
     """The plain-int counters a solve with the KKT operator `kkt` moves
     ((object, attribute) pairs; a replay adds what its capture added): the
-    CR kernel's launches and CUDA launches, a structured operator's block
-    solves, and a sharded operator's own (`kkt.counters`: its block solves
-    and its axis's messages)."""
+    CR kernel's launches and CUDA launches, the scan kernel's launches, a
+    structured operator's block solves, and a sharded operator's own
+    (`kkt.counters`: its block solves and its axis's messages)."""
     counters = list(KERNEL_COUNTERS)
     if isinstance(kkt, StructuredKKT):
         counters.append((kkt, "block_solves"))

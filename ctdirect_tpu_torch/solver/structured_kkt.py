@@ -19,11 +19,14 @@ scheme's LOCAL residual/cost forms. Assembly is written out of place
 (`torch.cat`, `F.pad`) so that it runs under the batched tick's vmap.
 
 Two solves: "scan" (sequential forward block elimination + border Schur +
-back substitution; the full IPM's default) and "cr" (block cyclic reduction
-through `lanes.cr_solve`, which reaches the hand-written CUDA kernel on the
-card). Around a reduced-precision block solve the operator runs two symmetric
-Ruiz passes on the assembled blocks and iterative refinement with the
-residual in the DOCP's dtype, as the JAX package does.
+back substitution; the full IPM's default) through `scan_kernel.scan_solve`,
+and "cr" (block cyclic reduction) through `lanes.cr_solve`; each reaches its
+hand-written CUDA kernel on the card, one launch per block solve (under
+`torch.func.vmap`, one for the whole batch), and its plain version on the
+CPU (`_scan_solve` below, `lanes.cr_solve_lanes`). Around a
+reduced-precision block solve the operator runs two symmetric Ruiz passes on
+the assembled blocks and iterative refinement with the residual in the
+DOCP's dtype, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from torch.func import hessian, jacfwd, vmap
 
 from ctdirect_tpu_torch.solver.kkt import gj_inverse, gj_solve
 from ctdirect_tpu_torch.solver.lanes import cr_solve
+from ctdirect_tpu_torch.solver.scan_kernel import scan_solve
 from ctdirect_tpu_torch.transcription.docp import DOCP
 
 
@@ -103,8 +107,9 @@ class StructuredKKT:
         None keeps the input's dtype.
 
         `block_solves` counts the block solves this operator ran (one per
-        batched call under `torch.func.vmap`): on CUDA tensors with "cr",
-        one CR kernel launch each."""
+        batched call under `torch.func.vmap`): on CUDA tensors one kernel
+        launch each, of the scan kernel with "scan" and of the CR kernel
+        with "cr"."""
         if algorithm not in ("scan", "cr"):
             raise ValueError(f"unknown algorithm {algorithm!r}")
         self.algorithm = algorithm
@@ -385,7 +390,7 @@ class StructuredKKT:
         if self.algorithm == "cr":
             X, xb = cr_solve(*blocks)
         else:
-            X, xb = _scan_solve(*blocks)
+            X, xb = scan_solve(*blocks)
         return X.to(r.dtype), xb.to(r.dtype)
 
     def solve(self, data, sigma_z, Drow, delta_w, delta_c, rz, rp):

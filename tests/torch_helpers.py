@@ -141,7 +141,7 @@ def gj_loop(M, n):
     return M
 
 
-def random_chain_lanes(P, bs, wb, B, seed=0, dtype=np.float64):
+def random_chain_lanes(P, bs, wb, B, seed=0, dtype=np.float64, shift=None):
     """Random well-conditioned padded block chain, lane-minor, numpy.
 
     A and F are SYMMETRIC: the CR recurrences exploit the KKT system's
@@ -152,13 +152,17 @@ def random_chain_lanes(P, bs, wb, B, seed=0, dtype=np.float64):
     so do chains of more than 4,096 blocks: with a shift of 4 the chain's
     spectrum reaches near zero as it grows (bs=10, wb=12: max |x| 32 at
     P=256, 3.7e3 at P=8,192, where the plain f32 and f64 solutions differ
-    by 1.9e-3 relative; with 4 + bs, 0.33 and 3.1e-7)."""
+    by 1.9e-3 relative; with 4 + bs, 0.33 and 3.1e-7). `shift` sets the
+    shift instead of that rule (chip_smoke.py's scan chains take 4 + bs:
+    with 4, the orbit-width chain of 500 blocks, bs=11, wb=13, has max |x|
+    396, and two f32 solves of it differ by 1.1e-3 relative)."""
     rng = np.random.default_rng(seed)
 
     def rnd(*s):
         return rng.standard_normal(s).astype(dtype)
 
-    shift = 4.0 if bs <= 12 and P <= 4096 else 4.0 + bs
+    if shift is None:
+        shift = 4.0 if bs <= 12 and P <= 4096 else 4.0 + bs
     A = rnd(P, bs, bs, B) * 0.3
     A = A + np.swapaxes(A, 1, 2) + np.eye(bs, dtype=dtype)[None, :, :, None] * shift
     Bp = rnd(P, bs, bs, B) * 0.3

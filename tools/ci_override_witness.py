@@ -5,7 +5,20 @@ stage by stage and prints one JSON line per stage.
 
 A job is [fixture, package, device, block, dtv] or [..., dtv, ulps]:
   package  "jax" (the JAX package, CPU only) or "torch" (the port)
-  block    structured  the CI's own scan solve (kkt_mode="structured")
+  block    structured  the CI's own scan solve (kkt_mode="structured") as
+                       dispatched: the scan kernel on a CUDA device, its plain
+                       version on the CPU
+           structured_plain   kkt_mode="structured" through
+                       scan_kernel.scan_solve_plain on the same device, the
+                       scan kernel's plain version
+           structured_nofma   as structured, the scan kernel built from the
+                       same source with nvcc --fmad=false (no product
+                       contracted into a fused multiply-add)
+           structured_shadow  as structured, every block solve also solved
+                       by the plain version (the statistics of shadow), the
+                       solve run eagerly (the statistics read the device)
+           dense       kkt_mode="dense": the dense KKT solve (DenseKKT, an LU
+                       of the whole system; the JAX package's too)
            kernel      kkt_mode="cr" as dispatched: the CR kernel on a CUDA
                        device, its plain version on the CPU
            plain       kkt_mode="cr" through lanes.cr_solve_lanes on the same
@@ -85,23 +98,39 @@ def run_torch(tag):
     from chip_smoke import CI_CONFIG, Cfg
     from ctdirect_tpu_torch.model.init import InitialGuess
     from ctdirect_tpu_torch.problems import get_problem
-    from ctdirect_tpu_torch.solver import cr_kernel, lanes
+    from ctdirect_tpu_torch.solver import cr_kernel, lanes, scan_kernel
 
     device, block, name = tag["device"], tag["block"], tag["fixture"]
     torch.set_num_threads(1)
     stats = dict(solves=0, max_rel_diff=0.0, max_res_kernel=0.0, max_res_plain=0.0, kernel_10x=0, plain_10x=0)
-    kernel = cr_kernel.cr_solve_batched
-    if block == "plain":
-        cr_kernel.cr_solve_batched = lambda *a: lanes.cr_solve_lanes(*a)
-    elif block == "shadow":
+    scan = block.startswith("structured")
+    module, attr = (scan_kernel, "scan_solve_batched") if scan else (cr_kernel, "cr_solve_batched")
+    kernel = getattr(module, attr)
+    plain = scan_kernel.scan_solve_plain if scan else lanes.cr_solve_lanes
+    shipped = None
+    if block in ("plain", "structured_plain"):
+        setattr(module, attr, lambda *a: plain(*a))
+    elif block == "structured_nofma":  # the same wrapper and counts, another build loaded
+        kernel.library()
+        shipped, kernel._lib = kernel._lib, scan_kernel._load(
+            cr_kernel.build(source=scan_kernel.SOURCE, extra=("--fmad=false",))[0])
+    elif block in ("shadow", "structured_shadow"):
         from torch_helpers import lane_residuals
+
+        def residual(a, X, xb):
+            if not scan:
+                return float(lane_residuals(a, X, xb).max())
+            # a batch-leading chain, lane-minor for the oracle (the coupling padded with a zero block)
+            A, Bc, E, F, r, rb = (x.movedim(0, -1) for x in a)
+            Bp = torch.cat([Bc, torch.zeros_like(A[:1])])
+            return float(lane_residuals((A, Bp, E, F, r, rb), X.movedim(0, -1), xb.movedim(0, -1)).max())
 
         def shadow(*a):
             X, xb = kernel(*a)
-            Xp, xbp = lanes.cr_solve_lanes(*a)
+            Xp, xbp = plain(*a)
             s = torch.cat([X.reshape(-1), xb.reshape(-1)])
             p = torch.cat([Xp.reshape(-1), xbp.reshape(-1)])
-            rk, rp = float(lane_residuals(a, X, xb).max()), float(lane_residuals(a, Xp, xbp).max())
+            rk, rp = residual(a, X, xb), residual(a, Xp, xbp)
             stats["solves"] += 1
             stats["max_rel_diff"] = max(stats["max_rel_diff"], float((s - p).abs().max() / p.abs().max()))
             stats["max_res_kernel"] = max(stats["max_res_kernel"], rk)
@@ -110,12 +139,14 @@ def run_torch(tag):
             stats["plain_10x"] += int(rp > 10 * rk)
             return X, xb
 
-        cr_kernel.cr_solve_batched = shadow
+        setattr(module, attr, shadow)
     kernel.reset_counts()
 
     def solve(docp, init, options):
-        from ctdirect_tpu_torch.solver.interface import solve_docp
+        from ctdirect_tpu_torch.solver.interface import _get_solver, solve_docp
 
+        if block == "structured_shadow":
+            _get_solver(docp, options).graphed = False  # the statistics read the device
         sol = solve_docp(docp, init=init, options=options)
         if device != "cpu":
             torch.cuda.synchronize()
@@ -124,8 +155,13 @@ def run_torch(tag):
     def transcribe(ocp, grid_size, scheme):
         return ct.transcribe(ocp, grid_size=grid_size, scheme=scheme, device=device)
 
-    return stages(transcribe, solve, InitialGuess, ct.IPMOptions, get_problem(name), CI_CONFIG.get(name, Cfg()),
-                  tag, stats if block == "shadow" else {}, kernel)
+    try:
+        return stages(transcribe, solve, InitialGuess, ct.IPMOptions, get_problem(name), CI_CONFIG.get(name, Cfg()),
+                      tag, stats if block.endswith("shadow") else {}, kernel)
+    finally:
+        setattr(module, attr, kernel)  # the pool's next job in this process starts from the kernel
+        if shipped is not None:
+            kernel._lib = shipped
 
 
 def stages(transcribe, solve, InitialGuess, IPMOptions, prob, cfg, tag, stats, kernel=None):
@@ -137,7 +173,8 @@ def stages(transcribe, solve, InitialGuess, IPMOptions, prob, cfg, tag, stats, k
     if tag["dtv"]:
         v = [float(a) for a in guess.variable]
         guess = InitialGuess(state=guess.state, control=guess.control, variable=[v[0] + tag["dtv"]] + v[1:])
-    mode = "structured" if tag["block"] == "structured" else "cr"
+    block = tag["block"]
+    mode = "structured" if block.startswith("structured") else ("dense" if block == "dense" else "cr")
     opts = IPMOptions(**{**cfg.opts, "kkt_mode": mode})
     warm = opts if cfg.warm_mu is None else opts.replace(mu_init=cfg.warm_mu)
     grids = (cfg.pre_grids + [cfg.grid])[:tag["stages"]]
@@ -192,10 +229,12 @@ def main():
     _paths()
     jobs = [(tuple(j), args.stages, args.guesses) for j in json.loads(args.jobs)]
     t0 = time.time()
-    if any(j[0][2] == "cuda" for j in jobs):  # build the kernel once, before the workers
+    if any(j[0][2] == "cuda" for j in jobs):  # build the kernels once, before the workers
         from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
+        from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched
 
         cr_solve_batched.library()
+        scan_solve_batched.library()
     pool = multiprocessing.get_context("spawn").Pool(args.workers)
     res = pool.map_async(job, jobs)
     res.wait(args.deadline)
