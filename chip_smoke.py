@@ -1,12 +1,13 @@
 """Drive the PyTorch port's main path once on an NVIDIA GPU and check it.
 
-    python3 chip_smoke.py [--old OLD_SOURCE]
+    python3 chip_smoke.py [--old OLD_SOURCE] [--old-scan OLD_SOURCE]
 
 Phases (any failure raises and the script exits non-zero, printing no result):
   1. the card's name and power limit (nvidia-smi);
   2. build the two kernels, the CR kernel from ctdirect_tpu_torch/csrc/cr_solve.cu
      and the scan kernel (the structured block solve) from csrc/scan_solve.cu,
-     one nvcc each, started together (ptxas report);
+     the latter one library per block width up to 16 and one for the wider
+     ones, one nvcc each, all started together (ptxas report);
   3. the CR kernel vs its plain PyTorch version at the MPC tick shape
      (P=128, bs=5, wb=7, B=512) in float32 and float64, plus a dense-residual
      check on 3 lanes; times of both (CUDA events, median of 20 calls for the
@@ -204,7 +205,10 @@ wb=13 and goddard_all trapeze N=5000 bs=10 wb=12 at B=1, cart-pole N=60
 bs=9 wb=13 at B=1024; f64 and f32): max abs difference / (1 + max |x|)
 within SCAN_TOL, the block-matvec residual of every instance, one launch a
 call; with the kernel's, the plain version's and the library call's times,
-the bound and the latency floor (one chain's operations on one SM). At each
+the bound and the latency floor (one chain's operations on one SM), the
+kernel's µs per step (ms / N), its share of the floor and the chains that
+can be resident on one SM (the occupancy calculator's CTAs x the chains a
+CTA holds at that batch). At each
 CR shape it prints the kernel's,
 the plain version's and a library call's time (torch.linalg.solve of the
 same system as one dense matrix per instance, at most LIBRARY_MAX_B of
@@ -232,6 +236,13 @@ an earlier cr_solve.cu with its C interface, to phase 3: at each shape it is
 held against the plain version with the same tolerance and timed in turns
 with the current kernel (old, new, new, old; CUDA events, median of up to 20
 calls each, fewer where one call takes seconds). Its calls count nowhere.
+
+--old-scan OLD_SOURCE does the same for the scan kernel with an earlier
+scan_solve.cu (the C interface scan_solve_f32 / scan_solve_f64(A, Bc, E, F,
+r, rb, X, xb, work, N, bs, wb, B, stream) and scan_workspace_elems(N, bs,
+wb, B)): at each SCAN_SHAPES row the current kernel must equal it bit for bit
+(max |dX| = max |dxb| = 0, f32 and f64), and both are timed in turns (old,
+new, new, old). Its calls count nowhere.
 """
 
 import argparse
@@ -524,6 +535,39 @@ def old_kernel(source):
     return solve
 
 
+def old_scan_kernel(source):
+    """solve(A, Bc, E, F, r, rb) of the scan kernel built from an earlier
+    scan_solve.cu (batch leading; the C interface of the module docstring)."""
+    from ctdirect_tpu_torch.solver import cr_kernel
+
+    lib = cr_kernel.BUILD_DIR / f"libscan_solve_old-{hashlib.sha256(source.read_bytes()).hexdigest()[:16]}.so"
+    if not lib.exists():
+        cr_kernel.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cr_kernel._nvcc(), *cr_kernel.NVCC_FLAGS, "-o", str(lib), str(source)], check=True)
+    dll = ctypes.CDLL(str(lib))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("scan_solve_f32", "scan_solve_f64"):
+        getattr(dll, name).argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+        getattr(dll, name).restype = i32
+    dll.scan_workspace_elems.argtypes = [i32] * 4
+    dll.scan_workspace_elems.restype = ctypes.c_size_t
+
+    def solve(A, Bc, E, F, r, rb):
+        nb, N, bs, _ = A.shape
+        wb = E.shape[-1]
+        X = torch.empty((nb, N, bs), dtype=A.dtype, device=A.device)
+        xb = torch.empty((nb, wb), dtype=A.dtype, device=A.device)
+        work = torch.empty(dll.scan_workspace_elems(N, bs, wb, nb), dtype=A.dtype, device=A.device)
+        fn = dll.scan_solve_f32 if A.dtype == torch.float32 else dll.scan_solve_f64
+        rc = fn(A.data_ptr(), Bc.data_ptr(), E.data_ptr(), F.data_ptr(), r.data_ptr(), rb.data_ptr(), X.data_ptr(),
+                xb.data_ptr(), work.data_ptr(), N, bs, wb, nb, torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old scan kernel launch failed: cudaError {rc}")
+        return X, xb
+
+    return solve
+
+
 def bound(dtype, P, bs, wb, nb):
     """(bound ms, what sets it, bytes, flops) of one solve: each input read
     once and each output written once, over the HBM rate; the operations the
@@ -731,14 +775,16 @@ def library_yardstick(chain, X, lanes):
     return ms, lib_b, lib_p, lib_n, note
 
 
-def phase_scan_vs_plain(scan):
+def phase_scan_vs_plain(scan, old=None):
     """The scan kernel against its plain version (`scan_solve_plain`, the
     structured solve's _scan_solve) at SCAN_SHAPES: one launch per call,
     agreement (max abs difference / (1 + max |x|) <= SCAN_TOL), the
     block-matvec residual of every instance, the device memory across the
     first launch, and the times of the kernel, the plain version and the
     library call (library_yardstick), beside the bound and the latency
-    floor (scan_bound). Returns one record per shape."""
+    floor (scan_bound), µs per step and the resident chains per SM; with
+    `old` (old_scan_kernel), the earlier kernel held to the current one bit
+    for bit and both timed in turns. Returns one record per shape."""
     from torch_helpers import lane_residuals
 
     from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_plain
@@ -775,6 +821,20 @@ def phase_scan_vs_plain(scan):
         if not resid < RESID_TOL[dtype]:
             raise AssertionError(f"scan kernel {dtype} at N={N} bs={bs} wb={wb} B={nb}: residual {resid:.3e}")
         ms = median_ms(lambda: scan(*chain))
+        old_rec = {}
+        if old is not None:
+            Xo, xbo = old(*chain)
+            old_dx = (X - Xo).abs().max().item()
+            old_dxb = (xb - xbo).abs().max().item() if xb.numel() else 0.0
+            if not (old_dx == 0.0 and old_dxb == 0.0):
+                raise AssertionError(f"scan kernel {dtype} at N={N} bs={bs} wb={wb} B={nb}: not the earlier "
+                                     f"kernel's bit for bit (max |dX| {old_dx:.3e}, max |dxb| {old_dxb:.3e})")
+            turns = {"old": [], "new": []}
+            for tag in ("old", "new", "new", "old"):
+                fn = (lambda: old(*chain)) if tag == "old" else (lambda: scan(*chain))
+                turns[tag].append(median_ms(fn, budget_ms=PLAIN_BUDGET_MS))
+            old_rec = dict(old_ms=turns["old"], new_ms=turns["new"], old_max_abs_diff=max(old_dx, old_dxb))
+            del Xo, xbo
         # the plain version's calls take seconds at the long chains: the comparison call
         # above is their warm-up, then 1-20 calls within PLAIN_BUDGET_MS
         plain = [event_ms(lambda: scan_solve_plain(*chain))]
@@ -784,19 +844,28 @@ def phase_scan_vs_plain(scan):
         library_ms, lib_b, lib_n_blocks, lib_n, lib_note = library_yardstick(lane_chain, Xp.permute(1, 2, 0), nb)
         bound_ms, bound_by, nbytes, flops, floor_ms = scan_bound(dtype, N, bs, wb, nb)
         smem = scan.smem_bytes(bs, wb, torch.finfo(dtype).bits // 8)
+        per_cta, resident = scan.launch_shape(bs, wb, nb, torch.finfo(dtype).bits // 8)
+        if old_rec:
+            log(f"  earlier scan kernel at N={N} bs={bs} wb={wb} B={nb} {dtype}: bitwise the current one (max "
+                f"|dX| = max |dxb| = 0); old {old_rec['old_ms']} ms, new {old_rec['new_ms']} ms (in turns old, "
+                f"new, new, old; CUDA events, median of up to 20)")
         log(f"scan kernel {dtype} at N={N} bs={bs} wb={wb} B={nb}: max abs err {err:.3e} vs plain (scale "
             f"{scale:.3g}), residual {resid:.3e} (every instance); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"library torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={lib_n}, {lib_note}) (CUDA events, "
             f"median of 20 / 1-20 / 5 or 3); bound {1e3 * bound_ms:.3f} us set by {bound_by} ({nbytes / 1e6:.3f} "
             f"MB, {flops / 1e9:.4f} GFLOP), kernel at {100 * bound_ms / ms:.3f}% of it; latency floor (one "
             f"chain's operations on one SM) {1e3 * floor_ms:.3f} us, kernel at {100 * floor_ms / ms:.2f}% of "
-            f"it; one launch of {nb} CTAs x 128 threads, {smem} B of shared memory each; device memory free "
+            f"it; {1e3 * ms / N:.3f} us per step; one launch of {-(-nb // per_cta)} CTAs x {64 * per_cta} threads "
+            f"({per_cta} chains a CTA, two warps and {smem} B of shared memory a chain), {resident} chains "
+            f"resident per SM ({resident * SM_COUNT} on the card); device memory free "
             f"{free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of {total / 2**30:.2f}, {outside / 2**20:.1f} MiB "
             f"outside PyTorch's allocator")
         results.append(dict(dtype=str(dtype).replace("torch.", ""), N=N, bs=bs, wb=wb, B=nb, max_abs_err=err,
                             scale=scale, residual=resid, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             library_B=lib_b, library_N=lib_n_blocks, bound_us=1e3 * bound_ms, bound_by=bound_by,
-                            floor_us=1e3 * floor_ms, smem_bytes=smem, mem_outside_allocator_mib=outside / 2**20))
+                            floor_us=1e3 * floor_ms, us_per_step=1e3 * ms / N, floor_share=floor_ms / ms,
+                            chains_per_cta=per_cta, resident_chains_per_sm=resident, smem_bytes=smem,
+                            mem_outside_allocator_mib=outside / 2**20, **old_rec))
         del chain, lane_chain, A, Bp, E, F, r, rb, X, xb, Xp, xbp
     return results
 
@@ -1972,7 +2041,8 @@ def phase_multihost(kernel, warm):
 
 
 def kernel_name(mangled):
-    """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`."""
+    """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`,
+    `scan_kernel<float, 16, 0>` from `...scan_kernelIfLi16ELi0EE...`."""
     m = re.match(r"_ZN(\d+)", mangled)
     if not m:
         return mangled
@@ -1982,7 +2052,10 @@ def kernel_name(mangled):
         return mangled
     name = rest[m.end():m.end() + int(m.group(1))]
     tail = rest[m.end() + int(m.group(1)):]
-    return f"{name}<{dict(IfE='float', IdE='double').get(tail[:3], '?')}>"
+    t = re.match(r"I([df])((?:Li\d+E)*)E", tail)
+    if not t:
+        return f"{name}<?>"
+    return f"{name}<{', '.join([dict(d='double', f='float')[t.group(1)], *re.findall(r'Li(\d+)E', t.group(2))])}>"
 
 
 def ptxas_report(build_log):
@@ -2044,7 +2117,8 @@ def kernel_entries(kres, paths, sres, scan_paths):
             launches=sum(p["launches"] for p in on), max_abs_err=max(r["max_abs_err"] for r in shapes),
             ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_us"] / 1e3,
             bound_by=first["bound_by"], library_ms=first["library_ms"], floor_ms=first["floor_us"] / 1e3,
-            paths=on, shapes=shapes))
+            us_per_step=first["us_per_step"], floor_share=first["floor_share"],
+            resident_chains_per_sm=first["resident_chains_per_sm"], paths=on, shapes=shapes))
     return entries
 
 
@@ -2053,6 +2127,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--old", type=Path,
                         help="an earlier cr_solve.cu (one thread per instance) to time against in phase 3")
+    parser.add_argument("--old-scan", type=Path,
+                        help="an earlier scan_solve.cu to hold bitwise and time against in phase 3")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2067,10 +2143,11 @@ def main():
     card = card_line()
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    # one nvcc per kernel source, both started together
+    # one nvcc per kernel library, all started together: the CR kernel's and
+    # the scan kernel's, one per width (scan_kernel.WIDTH_KEYS)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(k.library, verbose=True) for k in (kernel, scan)]
-        builds = [b.result() for b in builds]
+        cr_build, scan_builds = pool.submit(kernel.library, verbose=True), pool.submit(scan.build_all)
+        builds = [cr_build.result(), *scan_builds.result()]
     ptxas = []
     for path, build_s, build_log in builds:
         log(f"built {path.name} in {build_s:.2f} s")
@@ -2085,7 +2162,7 @@ def main():
 
     phase_done("phases 1-2")
     kres = phase_kernel_vs_plain(kernel, old_kernel(args.old) if args.old else None)
-    sres = phase_scan_vs_plain(scan)
+    sres = phase_scan_vs_plain(scan, old_scan_kernel(args.old_scan) if args.old_scan else None)
     phase_done("phase 3")
     scan_paths = [phase_front_door(ct, get_problem, scan)]
     phase_done("phase 4")

@@ -5,8 +5,8 @@ It replaces no Pallas kernel: it is the card form of the JAX package's
 native solver (`ctdirect_tpu/native` over `csrc/blocktri.cpp`) and of the
 `lax.scan` loops of `ctdirect_tpu/solver/structured_kkt.py::_scan_solve`,
 the block solve of the default `kkt_mode="structured"`. One solve is one
-launch on the current stream, one CTA per chain; the kernel source notes its
-design and what bounds it on the card.
+launch on the current stream, two warps a chain, up to four chains a CTA;
+the kernel source notes its design and what bounds it on the card.
 
 `scan_solve_batched(A, B_, E, F, r, rb)`, batch axis leading: A (Bt, N, bs,
 bs), B_ (Bt, N-1, bs, bs), E (Bt, N, bs, wb), F (Bt, wb, wb), r (Bt, N, bs),
@@ -22,12 +22,17 @@ whose `vmap` rule hands the whole batch to one `scan_solve_batched` call
 
 The kernel is built from the repository's source with `nvcc` at first use
 into `ctdirect_tpu_torch/_build/` (`cr_kernel.build`: a plain-C shared
-library loaded with ctypes); nothing CUDA-related happens at import time.
+library loaded with ctypes), one library per width: bs = 1 .. EXACT_MAX
+each its own (`-DSCAN_WIDTH=bs`: the kernel specialised to that bs), the
+wider ones together (`-DSCAN_WIDTH=0`). Nothing CUDA-related happens at
+import time.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import os
 from pathlib import Path
 
 import torch
@@ -39,6 +44,16 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "scan_solve.cu"
 _ENTRY = {torch.float32: "scan_solve_f32", torch.float64: "scan_solve_f64"}
 
 MAX_WIDTH = 64  # cap on bs + wb (kMaxWidth in the source)
+EXACT_MAX = 16  # widths built one library each (kExactMax in the source)
+
+
+def width_key(bs):
+    """The SCAN_WIDTH of the library that solves chains of block width bs."""
+    return bs if bs <= EXACT_MAX else 0
+
+
+# every library of the kernel, by SCAN_WIDTH
+WIDTH_KEYS = (*range(1, EXACT_MAX + 1), 0)
 
 
 def check_chain(A, B_, E, F, r, rb):
@@ -97,6 +112,8 @@ def _load(path: Path) -> ctypes.CDLL:
     lib.scan_workspace_elems.restype = ctypes.c_size_t
     lib.scan_smem_bytes.argtypes = [i32] * 3
     lib.scan_smem_bytes.restype = ctypes.c_longlong
+    lib.scan_launch_shape.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 2
+    lib.scan_launch_shape.restype = i32
     return lib
 
 
@@ -107,24 +124,45 @@ class ScanKernel:
 
     def __init__(self):
         self.launches = 0
-        self._lib = None
+        self._libs = {}
 
     def reset_counts(self):
         self.launches = 0
 
-    def library(self, verbose: bool = False):
-        """Build (if needed) and load the kernel library; returns the build
-        (path, seconds, log) of this call."""
-        info = cr_kernel.build(verbose=verbose, source=SOURCE)
-        if self._lib is None:
-            self._lib = _load(info[0])
+    def library(self, key: int = 0):
+        """Build (if needed) and load the library of SCAN_WIDTH `key`
+        (`width_key(bs)`); returns the build (path, seconds, log) of this
+        call. Every build keeps ptxas's report (`-Xptxas -v`), so that one
+        cached library serves every process. The builds of several keys may
+        run in parallel threads."""
+        info = cr_kernel.build(verbose=True, source=SOURCE, extra=(f"-DSCAN_WIDTH={key}",))
+        if key not in self._libs:
+            self._libs[key] = _load(info[0])
         return info
 
+    def build_all(self):
+        """Build and load every library (WIDTH_KEYS), one nvcc each, as many
+        at once as the host has cores; returns their (path, seconds, log)."""
+        with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+            return list(pool.map(self.library, WIDTH_KEYS))
+
+    def _lib(self, bs):
+        key = width_key(bs)
+        if key not in self._libs:
+            self.library(key=key)
+        return self._libs[key]
+
     def smem_bytes(self, bs, wb, itemsize):
-        """The dynamic shared memory of one chain's CTA (the library's)."""
-        if self._lib is None:
-            self.library()
-        return self._lib.scan_smem_bytes(bs, wb, itemsize)
+        """The dynamic shared memory of one chain (the library's)."""
+        return self._lib(bs).scan_smem_bytes(bs, wb, itemsize)
+
+    def launch_shape(self, bs, wb, B, itemsize):
+        """(chains a CTA holds, chains resident on one SM) at a batch of B
+        chains on the current device (the library's scan_launch_shape)."""
+        per_cta, resident = ctypes.c_int(), ctypes.c_int()
+        if self._lib(bs).scan_launch_shape(bs, wb, B, itemsize, ctypes.byref(per_cta), ctypes.byref(resident)):
+            raise RuntimeError(f"scan kernel: no launch shape for bs={bs} wb={wb} B={B}")
+        return per_cta.value, resident.value
 
     def __call__(self, A, B_, E, F, r, rb):
         if A.device.type == "cpu":
@@ -133,14 +171,13 @@ class ScanKernel:
             raise RuntimeError(f"scan kernel: unsupported device {A.device}")
         Bt, N, bs, wb = check_chain(A, B_, E, F, r, rb)
         dtype, device = A.dtype, A.device
-        if self._lib is None:
-            self.library()
+        lib = self._lib(bs)
         X = torch.empty((Bt, N, bs), dtype=dtype, device=device)
         xb = torch.empty((Bt, wb), dtype=dtype, device=device)
-        work = torch.empty(self._lib.scan_workspace_elems(N, bs, wb, Bt), dtype=dtype, device=device)
+        work = torch.empty(lib.scan_workspace_elems(N, bs, wb, Bt), dtype=dtype, device=device)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(self._lib, _ENTRY[dtype])(
+            rc = getattr(lib, _ENTRY[dtype])(
                 A.data_ptr(), B_.data_ptr(), E.data_ptr(), F.data_ptr(), r.data_ptr(), rb.data_ptr(),
                 X.data_ptr(), xb.data_ptr(), work.data_ptr(), N, bs, wb, Bt, stream,
             )

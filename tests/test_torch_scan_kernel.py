@@ -1,9 +1,11 @@
 """The structured solve's sequential block elimination ("scan"): the port's
 plain `_scan_solve` against the JAX package's and against the C++ native
 solver, the dispatch's `vmap` rule, the exact row exchange of its
-Gauss-Jordan, the port's `native` module, the kernel wrapper's CPU
-behaviour, and the CUDA kernel against its plain version on the card
-(marked `cuda`, skipped without one).
+Gauss-Jordan, a model of the kernel's warp Gauss-Jordan (rows exchanged by
+their indices) against the plain one, the port's `native` module, the
+kernel wrapper's CPU behaviour, and the CUDA kernel against its plain
+version and each batched chain against itself alone on the card (marked
+`cuda`, skipped without one).
 
 The JAX package is imported inside the tests that compare with it, so the
 card tests run where JAX is missing: `python -m pytest --noconftest -p
@@ -285,6 +287,69 @@ def test_exact_exchange_is_not_the_one_hot_form():
     assert not (np.isfinite(n(Xc)).all() and np.isfinite(n(xbc)).all())
 
 
+def _gj_index_exchange(M, n):
+    """The scan kernel's warp Gauss-Jordan (`gj_warp` in csrc/scan_solve.cu)
+    as a numpy model: the physical rows stay where they are and carry the
+    logical index of the row they hold; the pivot is the first logical row
+    of maximal |value| at or below the diagonal (a NaN first); the holders
+    of rows j and p swap their indices; the pivot row is divided by its
+    pivot and every other row loses its column-j multiple of it (a product
+    and a difference, rounded apart); columns left of the pivot are not
+    updated. Returns the reduced matrix in logical row order: its columns
+    n and beyond are the result, the rest is never read."""
+    M = np.array(M, dtype=np.float64)
+    r = np.arange(n)
+    with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+        for j in range(n):
+            best = None
+            for a in sorted(range(n), key=lambda a: r[a]):
+                if r[a] < j:
+                    continue
+                v, b = abs(M[a, j]), None if best is None else abs(M[best, j])
+                if best is None or (np.isnan(v) and not np.isnan(b)) or (not np.isnan(b) and v > b):
+                    best = a
+            p = r[best]
+            prow = M[best, j + 1 :] / M[best, j]
+            holder_j = int(np.flatnonzero(r == j)[0])
+            r[holder_j], r[best] = p, j
+            for a in range(n):
+                if a == best:
+                    M[a, j + 1 :] = prow
+                else:
+                    M[a, j + 1 :] = M[a, j + 1 :] - M[a, j] * prow
+    out = np.empty_like(M)
+    out[r] = M
+    return out
+
+
+def _gj_cases():
+    rng = np.random.default_rng(11)
+    tie = np.concatenate([_tie_block(), np.eye(7)], axis=1)
+    nan = np.concatenate([_tie_block(7, seed=1), np.eye(7)], axis=1)
+    nan[3, 1] = np.nan
+    inf = tie.copy()
+    inf[5, 3] = np.inf
+    wide = rng.standard_normal((12, 12)) + 4 * np.eye(12)
+    border = rng.standard_normal((9, 10))  # [Ftil | rbtil]: w rows, w + 1 columns
+    return {"ties": (tie, 7), "nan": (nan, 7), "inf": (inf, 7),
+            "random": (np.concatenate([wide, np.eye(12)], axis=1), 12), "border": (border, 9)}
+
+
+@pytest.mark.parametrize("case", ["ties", "nan", "inf", "random", "border"])
+def test_the_kernels_index_exchange_equals_the_plain_gauss_jordan(case):
+    """The kernel's Gauss-Jordan moves no row: it swaps the indices of the
+    rows the lanes hold and leaves the columns left of the pivot as they
+    are. Its result (the columns right of the square part) is the plain
+    exact exchange's (`_gj_eliminate`, torch.argmax's pivot) bit for bit,
+    with tied pivots, a NaN or an infinity in the matrix, and on a border
+    system's shape."""
+    M, rows = _gj_cases()[case]
+    got = _gj_index_exchange(M, rows)[:, rows:]
+    want = n(_gj_eliminate(t(M), rows))[:, rows:]
+    assert np.array_equal(got, want, equal_nan=True)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+
+
 def _one_hot_solve(chain):
     """The CR's plain version (one-hot exchange) on a one-block chain
     (batch-major)."""
@@ -321,6 +386,15 @@ def test_structured_block_solves_call_the_wrapper_once_each(monkeypatch):
     dz, _ = vmap(lambda x: kkt.solve(data, *args[:4], x, args[5]))(rz)
     assert calls[1:] == [(3, d.N, kkt.d.bs, kkt.d.bs)] and kkt.block_solves == 3
     np.testing.assert_allclose(n(dz[0]), n(want[0]), rtol=0, atol=1e-13)
+
+
+def test_every_width_has_one_library():
+    """Widths up to EXACT_MAX are built one library each (the kernel
+    specialised to that width), the wider ones share one; every width the
+    kernel takes maps to a key that the parallel build covers."""
+    keys = {scan_kernel.width_key(bs) for bs in range(1, scan_kernel.MAX_WIDTH + 1)}
+    assert keys == set(scan_kernel.WIDTH_KEYS)
+    assert [scan_kernel.width_key(bs) for bs in (1, 16, 17, 64)] == [1, 16, 0, 0]
 
 
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
@@ -401,6 +475,29 @@ def _check_on_card(host, dtype, tol):
 def test_kernel_matches_plain_on_card(N, bs, wb, B, dtype, tol):
     _needs_card()
     _check_on_card(_batch_major(N, bs, wb, B, seed=N + bs), dtype, tol)
+
+
+# batch sizes: 1 and a few that are no multiple of the chains a CTA holds
+# (ceil(B / SMs), at most 4: on 132 SMs 1, 1, 1, 2 and 4 for 3, 33, 130, 133
+# and 397); the chain widths of three width classes of the kernel
+BATCHES = [1, 3, 33, 130, 133, 397]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N,bs,wb", [(12, 5, 7), (20, 11, 13), (4, 40, 24)])
+@pytest.mark.parametrize("B", BATCHES)
+def test_kernel_batch_rows_equal_each_chain_alone_on_card(B, N, bs, wb, dtype):
+    """Each row of a batched solve is bit for bit the same chain solved
+    alone (B=1): a chain's result depends neither on its CTA-mates nor on
+    its slot in the CTA."""
+    _needs_card()
+    host = _batch_major(N, bs, wb, B, seed=B + bs)
+    chain = tuple(torch.tensor(x, device="cuda", dtype=dtype) for x in host)
+    X, xb = scan_solve_batched(*chain)
+    for b in range(B):
+        Xb, xbb = scan_solve_batched(*(x[b : b + 1].contiguous() for x in chain))
+        assert torch.equal(Xb[0], X[b]) and torch.equal(xbb[0], xb[b]), f"row {b} of {B}"
 
 
 @pytest.mark.cuda

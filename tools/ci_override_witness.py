@@ -11,9 +11,6 @@ A job is [fixture, package, device, block, dtv] or [..., dtv, ulps]:
            structured_plain   kkt_mode="structured" through
                        scan_kernel.scan_solve_plain on the same device, the
                        scan kernel's plain version
-           structured_nofma   as structured, the scan kernel built from the
-                       same source with nvcc --fmad=false (no product
-                       contracted into a fused multiply-add)
            structured_shadow  as structured, every block solve also solved
                        by the plain version (the statistics of shadow), the
                        solve run eagerly (the statistics read the device)
@@ -107,13 +104,8 @@ def run_torch(tag):
     module, attr = (scan_kernel, "scan_solve_batched") if scan else (cr_kernel, "cr_solve_batched")
     kernel = getattr(module, attr)
     plain = scan_kernel.scan_solve_plain if scan else lanes.cr_solve_lanes
-    shipped = None
     if block in ("plain", "structured_plain"):
         setattr(module, attr, lambda *a: plain(*a))
-    elif block == "structured_nofma":  # the same wrapper and counts, another build loaded
-        kernel.library()
-        shipped, kernel._lib = kernel._lib, scan_kernel._load(
-            cr_kernel.build(source=scan_kernel.SOURCE, extra=("--fmad=false",))[0])
     elif block in ("shadow", "structured_shadow"):
         from torch_helpers import lane_residuals
 
@@ -160,8 +152,6 @@ def run_torch(tag):
                       tag, stats if block.endswith("shadow") else {}, kernel)
     finally:
         setattr(module, attr, kernel)  # the pool's next job in this process starts from the kernel
-        if shipped is not None:
-            kernel._lib = shipped
 
 
 def stages(transcribe, solve, InitialGuess, IPMOptions, prob, cfg, tag, stats, kernel=None):
@@ -234,7 +224,7 @@ def main():
         from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched
 
         cr_solve_batched.library()
-        scan_solve_batched.library()
+        scan_solve_batched.build_all()
     pool = multiprocessing.get_context("spawn").Pool(args.workers)
     res = pool.map_async(job, jobs)
     res.wait(args.deadline)
