@@ -78,7 +78,10 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      utils/profiling.py's kernel_events: it reports the activity records
      CUPTI dropped (kineto's warnings, printed with KINETO_LOG_LEVEL=2,
      which this script sets) and takes a profile that dropped records again,
-     3 profiles at most; a count that differs with nothing dropped fails;
+     3 profiles at most; a count that differs with nothing dropped fails
+     (each profile keeps PROFILE_MARGIN_S of idle after the call, so that
+     the call's last kernels end inside it); phases 9 and 10 hold every
+     profiled solve's result to the unprofiled replay's within GRAPH_TOL;
  11. the 10-problem suite (benchmarks/sweep.py's EASY_SET) at N=250 trapeze
      through ctdirect_tpu_torch.sweep's run_sweep and checks, unprofiled:
      the sweep's options (f32 block solve, refinement, Ruiz, its
@@ -1276,19 +1279,24 @@ def phase_cartpole_batch(ct, kernel, docp, warm, device="cuda"):
         raise AssertionError(f"batch solve: converged share {ok:.4f} < {CP_MIN_CONVERGED}")
     log(f"  converged {100 * ok:.2f}%, median iterations {np.median(its):.0f} (max {its.max()})")
 
-    # the device split of one more graphed solve
+    # the device split of one more graphed solve (each profile taken runs it), held to the replay
     solver.stats = BatchStats()
+    profiled = []
     try:
-        split = profiled_solve(lambda: solver(z0, cl, cu), lambda: solver.stats.kkt_solves, per)
+        split = profiled_solve(lambda: profiled.append(solver(z0, cl, cu)), lambda: solver.stats.kkt_solves, per)
     except AssertionError as e:
         raise AssertionError(f"batch solve, CR kernel: {e}") from None
+    diff = max(result_diff(r, res) for r in profiled)
+    if not diff <= GRAPH_TOL:
+        raise AssertionError(f"batch solve under torch.profiler: differs from the graphed replay by {diff:.3e} "
+                             f"(bound {GRAPH_TOL:g}) in one of its {len(profiled)} profiles")
     wall, busy, cr, cr_launches = split["wall"], split["busy"], split["cr"], split["cr_launches"]
     replay = runs["graphed replay"]["wall"]
     log(f"  device split, graphed solve under torch.profiler: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%, idle {100 * (1 - busy / wall):.1f}%; idle {100 * (1 - busy / replay):.1f}% of "
         f"the unprofiled replay's {replay:.3f} s), CR kernel {cr:.3f} s ({100 * cr / busy:.1f}% of busy, "
         f"{cr_launches} CUDA launches of it seen = {cr_launches // per} solves x {per}), {split['launches']} "
-        f"kernel launches{seen_note(split)}")
+        f"kernel launches{seen_note(split)}; max abs diff from the replay {diff:.3e}")
 
     run = _get_solver(docp, opts)
     for b in CP_CHECK:
@@ -1411,16 +1419,22 @@ def phase_goddard(ct, get_problem, kernel, kres):
             f"{eager.iterations} eager, objective rel diff {rel:.2e} (bound 1e-8); speed-up of the replay over the "
             f"eager solve {row['eager_s'] / row['replayed call']['wall']:.2f}x")
 
+        profiled = []
         try:
-            split = profiled_solve(lambda: run(*args), lambda: run.kkt.block_solves, per)
+            split = profiled_solve(lambda: profiled.append(run(*args)), lambda: run.kkt.block_solves, per)
         except AssertionError as e:
             raise AssertionError(f"goddard {tag}, a replayed solve's CR kernel (block solves x {per}): {e}") from None
+        pdiff = max(solve_diff(r, got) for r in profiled)
+        if not pdiff <= GRAPH_TOL:
+            raise AssertionError(f"goddard {tag}: a replay under torch.profiler differs from the replay by "
+                                 f"{pdiff:.3e} (bound {GRAPH_TOL:g}) in one of its {len(profiled)} profiles")
         want = split["cr_launches"]
         log(f"  device split, replayed solve under torch.profiler: wall {split['wall']:.3f} s, device busy "
             f"{split['busy']:.3f} s ({100 * split['busy'] / split['wall']:.1f}%, idle "
             f"{100 * (1 - split['busy'] / split['wall']):.1f}%), CR kernel {split['cr']:.3f} s "
             f"({100 * split['cr'] / split['busy']:.1f}% of busy, {split['cr_launches']} CUDA launches of it seen = "
-            f"{want // per} block solves x {per}), {split['launches']} kernel launches{seen_note(split)}")
+            f"{want // per} block solves x {per}), {split['launches']} kernel launches{seen_note(split)}; max abs "
+            f"diff from the replay {pdiff:.3e}")
         row["split"] = split
         sols[tag], rows[tag] = sol, row
     dobj = abs(sols["f32"].objective - sols["f64"].objective) / abs(sols["f64"].objective)

@@ -82,6 +82,9 @@ JAX_CPU = {
     ("goddard", 5000, "structured:f64"): (0, 1.0125596132373804),
     ("goddard", 5000, "cr:f64"): (0, 1.0125596132373806),
     ("goddard", 5000, "cr:f32"): (0, 1.0125561676811352),
+    # (from the guess; of the 8 draws from it moved by k = 0, +-1, +-2, +-3,
+    # +4 ulps the JAX package fails 5, the card's scan kernel 2:
+    # tools/rounding_witness.py, PERF.md section 6)
     ("goddard", 5000, "structured:f32"): (0, 1.0125539498056622),
 }
 # cells whose status rests on rounding in the JAX package itself: its solve
@@ -89,10 +92,13 @@ JAX_CPU = {
 # (tools/latency_lab_jax.py --ulps) ends with another status. goddard
 # structured:f32 at N=250: status 1 (500 iterations) from the guess, 0 at
 # +1 and -1 ulp (273, 323 iterations) (PERF.md). Its status is reported and
-# not held; the objective is held where both converged. (At N=1000 the JAX
-# package converges from the guess and stalls at +1 and +2 ulps; the card
-# converges from the guess: held. At N=5000 it converges at +1 and -1 ulp
-# too: held.)
+# not held; the objective is held where both converged. Where the JAX
+# package and the card both converge from the guess, the status is held,
+# though moved draws fail in both: at N=1000 the JAX package stalls at +1
+# and +2 ulps; at N=5000 it converges at 0 and +-1 ulp and fails at +-2, +-3
+# and +4 (5 of 8), the card's scan kernel at -2 and +4 (2 of 8), which a
+# Fisher exact test (p = 0.31, tools/rounding_witness.py) cannot tell apart:
+# rounding, not a fault of the card (PERF.md section 6).
 STATUS_RESTS_ON_ROUNDING = {("goddard", 250, "structured:f32")}
 # the bound on the objective's gap to the JAX package's where both
 # converged (goddard: PERF.md section 2, its converged variants spread

@@ -49,7 +49,14 @@ class BatchSolver:
 
     The KKT operator follows `options.kkt_mode` as `solve` does ("cr" is the
     cyclic-reduction StructuredKKT; the JAX package's BatchSolver passes no
-    operator for "cr" and so solves it densely). `stats` counts the batched
+    operator for "cr" and so solves it densely). Under "structured" it
+    honours `kkt_solve_dtype`, `kkt_refine` and `kkt_equilibrate` as `solve`
+    does (`make_kkt`), where the JAX package's BatchSolver builds the f64
+    `StructuredKKT(docp)` whatever they say
+    (`ctdirect_tpu/parallel/batch.py:53-56`): given `kkt_solve_dtype="f32"`
+    the port's batch is the one with `StructuredKKT(solve_dtype=float32,
+    refine=2)`, the JAX batch its f64 one
+    (`tests/test_torch_batch_f32_options.py`). `stats` counts the batched
     KKT solves, host reads, outer iterations and segment runs over all calls
     (of this rank's rows under a mesh). `device` and `dtype` must match the
     DOCP's. Under a mesh the batch must split evenly over the axis:

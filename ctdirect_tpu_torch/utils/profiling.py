@@ -34,8 +34,12 @@ _DROPPED = re.compile(rb"Dropped (\d+) activity records")
 # kernel_events' profiles of one call at most (a profile that lost records is taken again)
 PROFILE_TRIES = 3
 # idle s that device_profile keeps inside the profiler before and after the
-# profiled call (tools/profile_misses.py measures what it changes)
-PROFILE_MARGIN_S = 0.0
+# profiled call. On the H100 the device's timestamps read 16-25 ms later than
+# the host's clock, and a profile stopped right after the call now and then
+# lost the call's last kernels (the last 1-4 CR solves of a graphed batch
+# solve): tools/profile_misses.py saw 2 of 67 profiles short at 0 s, 0 of 68
+# at 0.1 s
+PROFILE_MARGIN_S = 0.1
 # the prefix of the profiler ranges that `ranged` opens and `stage_split` reads
 STAGE = "stage:"
 # the prefix of the ranges that `segment_ranges` opens and `segment_split` reads
