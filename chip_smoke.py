@@ -184,6 +184,16 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      kernel; cart-pole's BatchSolver(mesh=) over 1,024 scenarios, a first
      graphed call and a replay, bitwise its eager solve, converged share
      >= CP_MIN_CONVERGED;
+ 17b. BASELINE config 5 across hosts: two host processes (subprocesses,
+     multihost.loopback_hosts, each calling run_hosts as a host of its own
+     would) join one gloo world over a loopback coordinator, one rank each,
+     both on the one card (gloo: the one backend that lets two ranks share
+     a card), at phase 17's sizes, each rank from its own compiled cold
+     start, cart-pole's BatchSolver(mesh=) at TWO_HOSTS_SOLVER_B a rank;
+     host 0 gathers every rank's record, runs phase 17's checks and sends
+     the verdict to host 1; rank 0's u0, KKT and final states bitwise
+     phase 17's one-rank world's, ticks x 3 CR launches on both ranks, the
+     scan kernel's launches in each cold start its structured block solves;
  18. the single-solve latency lab (ctdirect_tpu_torch.latency_lab's run_lab,
      report and checks; benchmarks/latency_lab.py's port) at LAB_N: beam and
      goddard (trapeze) under structured:f64, cr:f64, cr:f32 and
@@ -442,6 +452,9 @@ ORBIT_CFG = dict(N=500, B=2048, nominal_mode="structured", diagnostics=False)
 # ctdirect_tpu_torch.multihost --nproc 4`) takes cart-pole at its full
 # per-card batch on 1, 2 and 4 cards
 MULTIHOST_SIZES = {"double_integrator_minenergy": (512, 10), "cartpole": (1024, 5)}
+# phase 17b: the same across two host processes sharing the card over gloo,
+# cart-pole's BatchSolver at this batch a rank
+TWO_HOSTS_SOLVER_B = 256
 # phase 18: the single-solve latency lab (ctdirect_tpu_torch.latency_lab, its
 # problems and four configs) at this N, each config a first call and this
 # many replays
@@ -2051,7 +2064,71 @@ def phase_multihost(kernel, warm):
         c = r["cartpole"]["solver"]["calls"][call]
         paths.append(path_record(f"batch_solve_cartpole_batch_sharded_nccl{suffix}", torch.float64, c["launches"],
                                  c["grid_launches"], c["launches"] * per))
-    return paths
+    return dict(paths=paths, digests={name: r[name]["digest"] for name in MULTIHOST_SIZES})
+
+
+def phase_two_hosts(digests):
+    """Phase 17b: BASELINE config 5 across hosts, two host processes on the
+    one card (multihost.loopback_hosts: each calls run_hosts, one rank each,
+    over a loopback coordinator), over gloo, the one backend that lets two
+    ranks share a card: phase 17's sizes, each rank's own cold start (the
+    scan kernel), cart-pole's BatchSolver(mesh=) at TWO_HOSTS_SOLVER_B a
+    rank (its all_gather staged through the host). Rank 0's u0, KKT and
+    final states must be phase 17's one-rank world's (`digests`) bit for
+    bit; host 0's `report` must pass on every rank. Returns the paths' CR
+    and scan kernel records."""
+    import tempfile
+
+    from ctdirect_tpu_torch import multihost
+
+    cfg = multihost.default_cfg(device="cuda")
+    cfg["backend"] = "gloo"
+    for name, (per_card, ticks) in MULTIHOST_SIZES.items():
+        cfg["problems"][name].update(batch_per_chip=per_card, timed=ticks)
+    cp = cfg["problems"]["cartpole"]
+    cp["solver"] = dict(cp["solver"], batch_per_chip=TWO_HOSTS_SOLVER_B)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        hosts = multihost.loopback_hosts(1, cfg, 2, work, timeout=SHARD_TIMEOUT)
+    log(f"BASELINE config 5 across hosts: two host processes, one rank each on the one card, gloo, "
+        f"{time.perf_counter() - t0:.1f} s")
+    h0 = hosts[0]
+    for line in h0["lines"]:
+        log("  " + line)
+    failed = list(h0["failed"])
+    ranks = h0["ranks"]
+    if [r["rank"] for r in ranks] != [0, 1] or [r["rank"] for r in hosts[1]["local"]] != [1]:
+        failed.append(f"ranks {[r['rank'] for r in ranks]}, host 1's {[r['rank'] for r in hosts[1]['local']]}")
+    if hosts[1]["failed"] != h0["failed"]:
+        failed.append(f"host 1 holds another verdict: {hosts[1]['failed']}")
+    for name in MULTIHOST_SIZES:
+        if ranks[0][name]["digest"] != digests[name]:
+            failed.append(f"{name}: rank 0's u0, KKT or final states differ from phase 17's one-rank world's")
+        for r in ranks:
+            if not r[name]["cold"]["block_solves"]:
+                failed.append(f"{name} rank {r['rank']}: no cold start ran")
+    if failed:
+        raise AssertionError(f"phase 17b: {failed}")
+    cr, scan_paths = [], []
+    for name, tag in (("double_integrator_minenergy", "di"), ("cartpole", "cartpole")):
+        ts = [r[name] for r in ranks]
+        cr.append(path_record(f"mpc_tick_{tag}_two_hosts_gloo", torch.float64,
+                              sum(t["replay"]["launches"] for t in ts), sum(t["replay"]["grid_launches"] for t in ts),
+                              sum(t["replay"]["launches"] * t["per"] for t in ts)))
+        scan_paths.append(scan_record(f"mpc_cold_start_{tag}_two_hosts_gloo", torch.float64,
+                                      sum(t["cold"]["scan_launches"] for t in ts),
+                                      sum(t["cold"]["block_solves"] for t in ts)))
+    for call, suffix in (("first", "_first_call"), ("replay", "")):
+        cs = [r["cartpole"]["solver"]["calls"][call] for r in ranks]
+        cr.append(path_record(f"batch_solve_cartpole_two_hosts_gloo{suffix}", torch.float64,
+                              sum(c["launches"] for c in cs), sum(c["grid_launches"] for c in cs),
+                              sum(c["launches"] for c in cs) * ranks[0]["cartpole"]["per"]))
+    log(f"two hosts: rank 0 bitwise phase 17's one-rank world (both problems); CR launches per rank "
+        f"{[r['double_integrator_minenergy']['replay']['launches'] for r in ranks]} (DI), "
+        f"{[r['cartpole']['replay']['launches'] for r in ranks]} (cart-pole) = ticks x 3; scan kernel launches in the "
+        f"cold starts {[r['double_integrator_minenergy']['cold']['scan_launches'] for r in ranks]} (DI), "
+        f"{[r['cartpole']['cold']['scan_launches'] for r in ranks]} (cart-pole) = their structured block solves")
+    return dict(paths=cr, scan_paths=scan_paths)
 
 
 def kernel_name(mangled):
@@ -2217,14 +2294,16 @@ def main():
     config5 = phase_multihost(kernel, {"double_integrator_minenergy": main[torch.float64]["warm"],
                                        "cartpole": tick["warm"]})
     phase_done("phase 17")
+    hosts = phase_two_hosts(config5["digests"])
+    phase_done("phase 17b")
     lab = phase_lab(kernel, scan)
     phase_done("phase 18")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
-             *goddard["paths"], suite, grid, fixture_ci["path"], *sharded, *orbit["paths"], ladder, *config5,
-             *lab["paths"]]
+             *goddard["paths"], suite, grid, fixture_ci["path"], *sharded, *orbit["paths"], ladder, *config5["paths"],
+             *hosts["paths"], *lab["paths"]]
     scan_paths += [*main[torch.float32]["scan_paths"], *main[torch.float64]["scan_paths"], *tick["scan_paths"],
-                   fixture_ci["scan_path"], *orbit["scan_paths"], *lab["scan_paths"]]
+                   fixture_ci["scan_path"], *orbit["scan_paths"], *hosts["scan_paths"], *lab["scan_paths"]]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernels' builds included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths, sres, scan_paths), "ptxas": ptxas}))

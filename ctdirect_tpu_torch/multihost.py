@@ -1,11 +1,23 @@
-"""BASELINE config 5 across cards: the batch-sharded MPC tick and the
-batch-sharded BatchSolver, one card per rank, timed at 1, 2, 4, ... cards.
-The port's counterpart of benchmarks/multihost.py in its single-host mode
-(SCALING.md's weak-scaling protocol: a fixed batch per card, linearity =
-solves/s(D) / (D x solves/s(1))).
+"""BASELINE config 5 across cards and hosts: the batch-sharded MPC tick and
+the batch-sharded BatchSolver, one card per rank, timed at 1, 2, 4, ...
+cards of one host, or in one world that spans hosts. The port's counterpart
+of benchmarks/multihost.py (SCALING.md's weak-scaling protocol: a fixed
+batch per card, linearity = solves/s(D) / (D x solves/s(1))).
 
     python -m ctdirect_tpu_torch.multihost --nproc 4 [--problem double_integrator_minenergy|cartpole]
         [--batch-per-chip N] [--ticks T] [--json PATH] [--cpu]
+    python -m ctdirect_tpu_torch.multihost --coordinator HOST0:PORT --num-hosts H --host-id h --nproc L [...]
+
+Across hosts (the JAX script's --coordinator mode; `run_hosts`), each of the
+H hosts runs the second line with its own --host-id and L = its cards: one
+world of D = H x L ranks (parallel/spmd.py: rank h L + l on host h's card l;
+host 0 serves the rendezvous store at HOST0:PORT and must run there), not
+the sweep over D. Rank r ticks split_rows(B, D, r), so host h feeds only
+its ranks' rows; every rank's record reaches global rank 0 through the
+world, which runs `report` (every check below but the rows across D, which
+needs a second world) and sends the verdict to every rank; host 0 prints the
+lines and one JSON line with the JAX script's keys (`jax_keys`) beside the
+port's; every host exits non-zero on a failed check.
 
 For every D among the powers of two up to --nproc it spawns a world of D
 ranks (parallel/spmd.py: NCCL, one card each; with --cpu a gloo world on
@@ -47,7 +59,10 @@ printed every line and the JSON):
     expected): u0 and KKT at every tick, and the states after the last;
   - rank 0's rows are bitwise the same at every D (the same program on the
     same data): u0 and KKT at every tick and the final states, and the
-    BatchSolver's result;
+    BatchSolver's result (each row carries rank 0's digest, to hold two
+    runs to each other);
+  - on a card, the compiled cold start's scan kernel launches equal its
+    structured block solves;
   - max KKT below the problem's kkt_max where it has one (1e-10, the
     double integrator; cart-pole's 3 Newton steps do not converge: its
     KKT is reported);
@@ -68,7 +83,11 @@ It prints the cards' names and power limits (nvidia-smi), one line per
 
 `run(nproc, cfg)` and `report(results, cfg)` are the same run and checks
 for a caller that picks its own sizes (chip_smoke.py's phase 17: one rank;
-tests/test_torch_multihost.py: gloo worlds of 1 and 2 ranks)."""
+tests/test_torch_multihost.py: gloo worlds of 1 and 2 ranks);
+`run_hosts(nproc, cfg, coordinator=, num_hosts=, host_id=)` is a host's part
+of a world of hosts, and `loopback_hosts` starts such hosts as processes of
+this machine (chip_smoke.py's phase 17b: two on one card over gloo;
+tests/test_torch_multihost_hosts.py)."""
 
 from __future__ import annotations
 
@@ -284,7 +303,9 @@ def _tick_leg(world, name, pc, cfg, kernel, per):
     import ctdirect_tpu_torch as ct
     from ctdirect_tpu_torch.parallel import MPCController, broadcast_state
     from ctdirect_tpu_torch.problems import get_problem
+    from ctdirect_tpu_torch.solver.interface import _get_solver
     from ctdirect_tpu_torch.solver.resolve import warm_state_from_numpy
+    from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_batched as scan
 
     dev, D = world.device, world.size
     prob = get_problem(name)
@@ -293,13 +314,17 @@ def _tick_leg(world, name, pc, cfg, kernel, per):
     ctrl = MPCController(docp, x0_boundary_rows=list(pc["rows"]), resolve_iters=pc["iters"], kkt_algorithm="cr",
                          mesh=mesh, batch_axis="batch", device=dev, dtype=torch.float64)
     t0 = time.perf_counter()
+    scan0, cold_solves = scan.launches, 0
     if pc.get("warm") is not None:
         warm = warm_state_from_numpy(pc["warm"], dev)
     else:
-        warm = ctrl.cold_start(options=ct.IPMOptions(**pc["cold"]), init=prob.init if pc["init"] else None)
+        options = ct.IPMOptions(**pc["cold"])
+        warm = ctrl.cold_start(options=options, init=prob.init if pc["init"] else None)
+        cold_solves = _get_solver(docp, options).kkt.block_solves
         docp.release_solvers()
     _sync(dev)
     cold_s = time.perf_counter() - t0
+    cold = dict(block_solves=cold_solves, scan_launches=scan.launches - scan0)
 
     B = pc["batch_per_chip"] * D
     mine = split_rows(B, D, ctrl.axis.rank)
@@ -331,7 +356,7 @@ def _tick_leg(world, name, pc, cfg, kernel, per):
     u0_all = torch.stack(replay["u0s"])
     out = dict(
         B=B, rows=(mine.start, mine.stop), ticks=ticks, timed=pc["timed"], graphed=ctrl.graphed,
-        captures=ctrl.captures, cold_s=cold_s, first_s=first_s,
+        captures=ctrl.captures, cold_s=cold_s, cold=cold, first_s=first_s,
         capture_s=0.0 if graph is None else graph.capture_s,
         pool_mib=0.0 if graph is None else graph.pool_bytes / 2**20,
         p50=float(np.percentile(replay["ms"], 50)), p90=float(np.percentile(replay["ms"], 90)),
@@ -436,21 +461,163 @@ def _rank(world, cfg):
     return out
 
 
+def _before_launch(nproc: int, cfg: dict) -> None:
+    """ValueError for a cfg no world can run or more NCCL ranks on this
+    host than cards; the environment the ranks inherit."""
+    from ctdirect_tpu_torch.parallel.spmd import check_backend
+
+    check_cfg(cfg)
+    check_backend(cfg["backend"], torch.device(cfg["device"]).type, nproc)
+    # the ranks' kineto prints CUPTI's dropped records (_profiled) at this level
+    os.environ.setdefault("KINETO_LOG_LEVEL", "2")
+
+
 def run(nproc: int, cfg: dict, timeout: float = TIMEOUT) -> dict:
     """The measurements of `cfg` in a world of D ranks for each D of
     sizes_up_to(nproc) (cfg's backend: NCCL, one card each, or gloo on the
     CPU); returns {D: the ranks' results in rank order}. Raises ValueError
     before any world is spawned for a cfg no world can run or an NCCL
     world with more ranks than cards."""
-    from ctdirect_tpu_torch.parallel.spmd import check_backend, launch
+    from ctdirect_tpu_torch.parallel.spmd import launch
 
-    check_cfg(cfg)
-    device = torch.device(cfg["device"])
-    check_backend(cfg["backend"], device.type, nproc)
-    # the ranks' kineto prints CUPTI's dropped records (_profiled) at this level
-    os.environ.setdefault("KINETO_LOG_LEVEL", "2")
+    _before_launch(nproc, cfg)
     return {D: launch(_rank, D, device=cfg["device"], backend=cfg["backend"], args=(cfg,), timeout=timeout)
             for D in sizes_up_to(nproc)}
+
+
+def _world_rank(world, cfg):
+    """One rank of a world that spans hosts: its measurements (`_rank`);
+    every rank's reach global rank 0, which runs `report` over them and
+    sends its verdict (the failed checks) to every rank before the world
+    ends. The objects travel over gloo (a side group in an NCCL world)."""
+    rec = _rank(world, cfg)
+    group = dist.new_group(backend="gloo") if world.backend != "gloo" else None
+    recs = [None] * world.size if world.rank == 0 else None
+    dist.gather_object(rec, recs, dst=0, group=group)
+    out, verdict = dict(record=rec), [None]
+    if world.rank == 0:
+        lines = []
+        summary = report({world.size: recs}, cfg, log=lines.append)
+        out.update(ranks=recs, summary=summary, lines=lines)
+        verdict = [summary["failed"]]
+    dist.broadcast_object_list(verdict, src=0, group=group)
+    out["failed"] = verdict[0]
+    return out
+
+
+def run_hosts(nproc: int, cfg: dict, *, coordinator: str, num_hosts: int, host_id: int,
+              timeout: float = TIMEOUT) -> dict:
+    """This host's part of one world of D = num_hosts x nproc ranks
+    (benchmarks/multihost.py's --coordinator mode; parallel/spmd.py: global
+    rank host_id * nproc + l on this host's card l): every rank ticks its
+    rows of the global batch, so this host feeds only rows
+    [host_id nproc B_local, (host_id + 1) nproc B_local). Host 0 must run
+    on the coordinator's machine. Returns dict(host, num_hosts, failed: the
+    world's failed checks (host 0's `report`, on every host), local: this
+    host's ranks' records); on host 0 also ranks (every rank's record),
+    summary and lines. Raises ValueError before anything is spawned as
+    `run` does and for a world of hosts no launch can join, SPMDError where
+    a rank fails or the world does not finish (a missing host) within
+    `timeout` seconds."""
+    from ctdirect_tpu_torch.parallel.spmd import launch
+
+    _before_launch(nproc, cfg)
+    outs = launch(_world_rank, nproc, device=cfg["device"], backend=cfg["backend"], args=(cfg,), timeout=timeout,
+                  coordinator=coordinator, num_hosts=num_hosts, host_id=host_id)
+    res = dict(host=host_id, num_hosts=num_hosts, failed=outs[0]["failed"], local=[o["record"] for o in outs])
+    if host_id == 0:
+        res.update(ranks=outs[0]["ranks"], summary=outs[0]["summary"], lines=outs[0]["lines"])
+    return res
+
+
+def _host_process(cfg_path, out_path, nproc, coordinator, num_hosts, host_id, timeout):
+    """The body of one host process of `loopback_hosts`."""
+    import pickle
+
+    with open(cfg_path, "rb") as f:
+        cfg = pickle.load(f)
+    res = run_hosts(int(nproc), cfg, coordinator=coordinator, num_hosts=int(num_hosts), host_id=int(host_id),
+                    timeout=float(timeout))
+    with open(out_path, "wb") as f:
+        pickle.dump(res, f)
+
+
+def loopback_hosts(nproc: int, cfg: dict, num_hosts: int, workdir, timeout: float = TIMEOUT) -> list:
+    """One world of num_hosts x nproc ranks on this machine, each host a
+    process of its own that calls `run_hosts` as a host of its own would,
+    over a free loopback port (the cfg and the results pass through
+    pickles in `workdir`); returns the hosts' results in host order. Every
+    host process sees every card: an NCCL world of several hosts here
+    needs CUDA_VISIBLE_DEVICES per host, which this does not set. Raises
+    SPMDError, with the end of its output, where a host exits non-zero or
+    outlives `timeout` (+ 60 s for its start); every host process is
+    stopped before it returns or raises."""
+    import pickle
+    import subprocess
+    from pathlib import Path
+
+    from ctdirect_tpu_torch.parallel.spmd import SPMDError, _free_port, check_hosts
+
+    coordinator = f"127.0.0.1:{_free_port()}"
+    check_hosts(coordinator, num_hosts, 0)
+    work = Path(workdir)
+    work.mkdir(parents=True, exist_ok=True)
+    cfg_path = work / "cfg.pkl"
+    with open(cfg_path, "wb") as f:
+        pickle.dump(cfg, f)
+    root = str(Path(__file__).resolve().parent.parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(filter(None, [root, os.environ.get("PYTHONPATH")])))
+    code = "import sys; from ctdirect_tpu_torch.multihost import _host_process; _host_process(*sys.argv[1:])"
+    procs, logs = [], []
+    try:
+        for h in range(num_hosts):
+            log = open(work / f"host{h}.log", "w+b")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, str(cfg_path), str(work / f"host{h}.pkl"), str(nproc), coordinator,
+                 str(num_hosts), str(h), str(timeout)], env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout + 60.0
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+        late = [h for h, p in enumerate(procs) if p.poll() is None]
+        bad = [h for h, p in enumerate(procs) if p.poll() not in (None, 0)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=10.0)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    tails = []
+    for h, log in enumerate(logs):
+        log.seek(0)
+        tails.append(log.read()[-4000:].decode(errors="replace"))
+        log.close()
+    if bad or late:
+        h = (bad or late)[0]
+        what = f"exited with code {procs[h].returncode}" if bad else f"did not finish within {timeout + 60:.0f} s"
+        raise SPMDError(f"host {h} of {num_hosts} {what} (coordinator {coordinator}); its output ends:\n{tails[h]}")
+    out = []
+    for h in range(num_hosts):
+        with open(work / f"host{h}.pkl", "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def jax_keys(summary: dict, num_hosts: int) -> dict:
+    """The keys benchmarks/multihost.py prints (:158-168), from the last
+    world's tick row of the first problem (unrounded)."""
+    name = next(iter(summary["problems"]))
+    row = summary["problems"][name]["ticks"][-1]
+    return dict(metric="multi-host warm MPC solves/s", problem=name, n_hosts=num_hosts, n_chips=row["D"],
+                batch=row["B"], ms_per_tick=row["ms_per_tick"],
+                ms_per_tick_with_dp_allreduce=row["ms_per_tick_with_dp_allreduce"],
+                dp_allreduce_cost_ms=row["dp_allreduce_cost_ms"], solves_per_s=row["solves_per_s"],
+                solves_per_s_per_chip=row["solves_per_s_per_chip"], kkt_max=row["kkt_max"])
 
 
 # ---- the checks and the lines ----
@@ -470,6 +637,10 @@ def _tick_checks(name, pc, D, ranks, fail):
             p = t["profiled"]
             if "error" in p or p["launches"] != pc["iters"] or p["nccl"]:
                 fail(f"{tag}: the profiled replay: {p}")
+        c = t.get("cold", {})
+        if r["device"] == "cuda" and c.get("block_solves") and c["scan_launches"] != c["block_solves"]:
+            fail(f"{tag}: {c['scan_launches']} scan kernel launches in the cold start, {c['block_solves']} "
+                 f"structured block solves")
         if t["replay"]["block_solves"] != want:
             fail(f"{tag}: {t['replay']['block_solves']} block solves in {ticks} ticks, planned {want}")
         if not t["replay_eager"] <= GRAPH_TOL:
@@ -534,7 +705,7 @@ def report(results: dict, cfg: dict, log=print) -> dict:
                        cold_s=[t["cold_s"] for t in ts], eager_p50=max(t["eager"]["p50"] for t in ts),
                        cr_launches_per_tick=t0["replay"]["launches"] / t0["ticks"],
                        kkt_max=max(t["kkt_max"] for t in ts), replay_eager=max(t["replay_eager"] for t in ts),
-                       bitwise=all(t["bitwise"] for t in ts))
+                       bitwise=all(t["bitwise"] for t in ts), rank0_digest=t0["digest"])
             if "saturated" in t0:
                 row["saturated"] = float(np.mean([t["saturated"] for t in ts]))
             if "profiled" in t0:
@@ -570,7 +741,7 @@ def report(results: dict, cfg: dict, log=print) -> dict:
                             syncs_per_iteration=c["host_syncs"] / max(c["iterations"], 1), iterations=c["iterations"],
                             converged=s0["converged"], capture_s=[s["capture_s"] for s in ss],
                             pool_mib=[s["pool_mib"] for s in ss], peak_mib=[s["peak_mib"] for s in ss],
-                            eager_diff=s0.get("eager_diff"), launches=c["launches"])
+                            eager_diff=s0.get("eager_diff"), launches=c["launches"], rank0_digest=s0["digest"])
                 srows.append(srow)
                 lin = "-" if srow["linearity"] is None else f"{srow['linearity']:.4f}"
                 log(f"{name} BatchSolver, D={D}, B={srow['B']}: first graphed call {srow['first_s']:.3f} s, replay "
@@ -591,14 +762,21 @@ def report(results: dict, cfg: dict, log=print) -> dict:
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="BASELINE config 5: the batch-sharded tick and BatchSolver, timed "
-                                                 "on 1, 2, 4, ... cards")
-    parser.add_argument("--nproc", type=int, default=4, help="the most ranks, one card each")
+                                                 "on 1, 2, 4, ... cards, or across hosts")
+    parser.add_argument("--nproc", type=int, default=4,
+                        help="the most ranks, one card each (with --coordinator: this host's ranks, its cards)")
     parser.add_argument("--problem", choices=sorted(PROBLEMS), help="one problem (default: both)")
     parser.add_argument("--batch-per-chip", type=int, help="the tick's batch a card (default: PROBLEMS')")
     parser.add_argument("--ticks", type=int, default=TIMED, help="timed ticks")
-    parser.add_argument("--json", help="also write the JSON summary here")
+    parser.add_argument("--json", help="also write the JSON summary here (host 0)")
     parser.add_argument("--cpu", action="store_true", help="gloo ranks on the CPU")
+    parser.add_argument("--coordinator", help="host 0's host:port: join one world of --num-hosts x --nproc ranks "
+                                              "(host 0 serves its rendezvous store there)")
+    parser.add_argument("--num-hosts", type=int, default=1, help="the hosts of the world (with --coordinator)")
+    parser.add_argument("--host-id", type=int, default=0, help="this host's index, 0 .. --num-hosts - 1")
     args = parser.parse_args(argv)
+    if args.coordinator is None and (args.num_hosts != 1 or args.host_id != 0):
+        parser.error("--num-hosts and --host-id need --coordinator")
     if not args.cpu and not torch.cuda.is_available():
         print("multihost: no CUDA device (--cpu runs gloo ranks on the CPU)", file=sys.stderr)
         sys.exit(1)
@@ -606,15 +784,29 @@ def main(argv=None):
         print(card_line(), flush=True)
     cfg = default_cfg(args.problem, args.batch_per_chip, args.ticks, device="cpu" if args.cpu else "cuda")
     t0 = time.perf_counter()
-    results = run(args.nproc, cfg)
-    summary = report(results, cfg, log=lambda m: print(m, flush=True))
-    summary.update(nproc=args.nproc, wall_s=time.perf_counter() - t0)
+    if args.coordinator is None:
+        results = run(args.nproc, cfg)
+        summary = report(results, cfg, log=lambda m: print(m, flush=True))
+        summary.update(nproc=args.nproc, wall_s=time.perf_counter() - t0)
+        failed = summary["failed"]
+    else:
+        res = run_hosts(args.nproc, cfg, coordinator=args.coordinator, num_hosts=args.num_hosts,
+                        host_id=args.host_id)
+        failed = res["failed"]
+        if args.host_id != 0:
+            print(f"host {args.host_id} of {args.num_hosts}: ranks {[r['rank'] for r in res['local']]} done, "
+                  f"{len(failed)} failed checks in the world", flush=True)
+            sys.exit(1 if failed else 0)
+        for line in res["lines"]:
+            print(line, flush=True)
+        summary = dict(jax_keys(res["summary"], args.num_hosts), **res["summary"], nproc=args.nproc,
+                       wall_s=time.perf_counter() - t0)
     text = json.dumps(summary, default=lambda x: x.tolist() if hasattr(x, "tolist") else str(x))
     if args.json:
         with open(args.json, "w") as f:
             f.write(text + "\n")
     print(text)
-    if summary["failed"]:
+    if failed:
         sys.exit(1)
 
 

@@ -10,6 +10,18 @@ the ranks (`world.mesh((2, 2), ("batch", "time"))`). The ranks' return values
 order. A rank that raises, dies or outlives the time limit makes `launch`
 stop every process it started and raise.
 
+A world may span hosts (`benchmarks/multihost.py`'s vocabulary): with
+`coordinator="host:port"`, `num_hosts=H` and `host_id=h`, each of the H hosts
+calls `launch` with its own `host_id` and spawns its `nproc` local ranks, the
+global ranks h*nproc .. h*nproc + nproc - 1 of one world of H*nproc
+(`rank_layout`: local rank l on the host's card l). Global rank 0 serves the
+rendezvous store at the coordinator's address, so host 0 must run on that
+machine (`launch` there fails before spawning when it cannot bind it); every
+other host connects to it within `timeout`. Each host's `launch` returns its
+own ranks' results; what a rank needs of the others travels through the
+world itself (a collective). Several hosts on one machine each see their own
+cards (CUDA_VISIBLE_DEVICES).
+
 `fn` must be importable by name (a module-level function of an importable
 module): the spawned processes import it afresh.
 
@@ -19,11 +31,12 @@ Backends (`check_backend`):
     (`time_shard.ShardAxis` counts those);
   - "nccl" carries CUDA tensors, one card per rank.
 Any other backend, an NCCL world on the CPU and an NCCL world with more ranks
-than cards raise before anything is spawned."""
+on a host than the host has cards raise before anything is spawned."""
 
 from __future__ import annotations
 
 import contextlib
+import ipaddress
 import os
 import queue as queue_mod
 import socket
@@ -38,31 +51,84 @@ import torch.distributed as dist
 BACKENDS = ("gloo", "nccl")
 
 
-def check_backend(backend: str, device_type: str, world_size: int) -> None:
+def check_backend(backend: str, device_type: str, local_ranks: int) -> None:
     """Raise ValueError for a world no backend of the port carries: an
-    unknown backend, NCCL with CPU tensors, NCCL with more ranks than cards."""
+    unknown backend, NCCL with CPU tensors, NCCL with more ranks on this host
+    (`local_ranks`) than this host has cards."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: the port's collectives run on {BACKENDS}")
     if backend == "nccl":
         if device_type != "cuda":
             raise ValueError(f"an NCCL group carries CUDA tensors, not {device_type} tensors")
         cards = torch.cuda.device_count()
-        if world_size > cards:
+        if local_ranks > cards:
             raise ValueError(
-                f"NCCL puts one rank on each card: {world_size} ranks, {cards} cards "
+                f"NCCL puts one rank on each card: {local_ranks} ranks on this host, {cards} cards "
                 f"(ranks sharing a card run on gloo, which stages CUDA tensors through the host)"
             )
+
+
+def local_world_size() -> int:
+    """The ranks on this rank's host (LOCAL_WORLD_SIZE, which `launch` sets;
+    the world's size where it is not set)."""
+    return int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+
+
+def parse_coordinator(coordinator: str) -> tuple:
+    """(host, port) of "host:port" (or "[v6 address]:port"); ValueError
+    where the host or the port is missing."""
+    host, sep, port = coordinator.rpartition(":")
+    if host.startswith("[") and host.endswith("]"):
+        host = host[1:-1]
+    if not sep or not host or not port.isdigit() or not 0 < int(port) < 65536:
+        raise ValueError(f"a coordinator is host:port, not {coordinator!r}")
+    return host, int(port)
+
+
+def is_loopback(host: str) -> bool:
+    """Whether `host` names this machine's loopback interface."""
+    if host == "localhost":
+        return True
+    try:
+        return ipaddress.ip_address(host).is_loopback
+    except ValueError:
+        return False
+
+
+def check_hosts(coordinator, num_hosts: int, host_id: int) -> None:
+    """ValueError for a world of hosts no launch can join: fewer than one
+    host, a host_id outside [0, num_hosts), several hosts without a
+    coordinator, a coordinator without a host or a port."""
+    if not (isinstance(num_hosts, int) and num_hosts >= 1):
+        raise ValueError(f"a world has at least one host, not {num_hosts!r}")
+    if not (isinstance(host_id, int) and 0 <= host_id < num_hosts):
+        raise ValueError(f"host_id {host_id!r} is outside [0, {num_hosts})")
+    if coordinator is not None:
+        parse_coordinator(coordinator)
+    elif num_hosts > 1:
+        raise ValueError(f"a world of {num_hosts} hosts needs a coordinator host:port")
+
+
+def rank_layout(num_hosts: int, nproc: int, host_id: int, cards: int = 0) -> list:
+    """(global rank, local rank, card) of each of host `host_id`'s `nproc`
+    ranks in a world of num_hosts x nproc: local rank l is global rank
+    host_id * nproc + l, on card l % cards (None where `cards` is 0)."""
+    return [(host_id * nproc + l, l, l % cards if cards else None) for l in range(nproc)]
 
 
 @dataclass
 class World:
     """What a rank knows of its world: its rank, the world's size, the device
-    its tensors live on and the backend of its process group."""
+    its tensors live on and the backend of its process group; its rank among
+    its host's ranks, its host and the number of hosts."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
+    local_rank: int
+    host: int
+    num_hosts: int
 
     def mesh(self, shape, names):
         """A DeviceMesh of `shape` over all ranks (row-major) with the axis
@@ -84,23 +150,41 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(rank, nproc, port, device, backend, fn, args, results, timeout):
-    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                      WORLD_SIZE=str(nproc), LOCAL_RANK=str(rank))
-    # rendezvous and messages stay on the loopback interface
-    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+def _check_bind(host: str, port: int) -> None:
+    """SPMDError unless this machine can listen at host:port, where global
+    rank 0 serves the rendezvous store."""
     try:
-        # the ranks share the host's cores
+        infos = socket.getaddrinfo(host, port, type=socket.SOCK_STREAM)
+        family, _, _, _, addr = infos[0]
+        with socket.socket(family, socket.SOCK_STREAM) as s:
+            s.bind(addr)
+    except OSError as e:
+        raise SPMDError(
+            f"host 0 serves the rendezvous store at {host}:{port}, and this machine cannot listen there ({e}): "
+            f"run host 0 on the coordinator's machine, at a free port"
+        ) from e
+
+
+def _rank_main(rank, local_rank, nproc, size, host, port, loopback, place, device, backend, fn, args, results,
+               timeout):
+    os.environ.update(MASTER_ADDR=host, MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(size),
+                      LOCAL_RANK=str(local_rank), LOCAL_WORLD_SIZE=str(nproc))
+    if loopback:
+        # rendezvous and messages stay on the loopback interface
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    try:
+        # the host's ranks share its cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // nproc))
         dev = torch.device(device)
         if dev.type == "cuda":
             if dev.index is None:
-                dev = torch.device("cuda", rank % torch.cuda.device_count())
+                dev = torch.device("cuda", local_rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
-        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                                world_size=nproc, timeout=timedelta(seconds=timeout))
-        out = fn(World(rank, nproc, dev, backend), *args)
+        address = f"[{host}]" if ":" in host else host
+        dist.init_process_group(backend, init_method=f"tcp://{address}:{port}", rank=rank, world_size=size,
+                                timeout=timedelta(seconds=timeout))
+        out = fn(World(rank, size, dev, backend, local_rank, place[0], place[1]), *args)
         results.put((rank, None, out))
     except BaseException:
         results.put((rank, traceback.format_exc(), None))
@@ -110,25 +194,41 @@ def _rank_main(rank, nproc, port, device, backend, fn, args, results, timeout):
             dist.destroy_process_group()
 
 
-def launch(fn, nproc: int, *, device, backend: str, args=(), timeout: float = 300.0) -> list:
+def launch(fn, nproc: int, *, device, backend: str, args=(), timeout: float = 300.0, coordinator=None,
+           num_hosts: int = 1, host_id: int = 0) -> list:
     """Run fn(world, *args) on `nproc` spawned ranks on `device` ("cpu",
-    "cuda": rank r on card r % cards, or "cuda:i" for all) over `backend`;
-    returns the ranks' results in rank order. Raises SPMDError if a rank
-    raises or dies, or if the world has not finished within `timeout`
-    seconds; every process is stopped before `launch` returns or raises."""
+    "cuda": local rank l on card l % cards, or "cuda:i" for all) over
+    `backend`; returns the ranks' results in rank order. With `coordinator`
+    ("host:port"), these are host `host_id`'s ranks of a world of
+    num_hosts x nproc (the module docstring); without, a world of `nproc`
+    on a free localhost port. Raises ValueError before anything is spawned
+    for a world no launch can run (`check_backend`, `check_hosts`), and
+    SPMDError if a rank raises or dies, or if the world has not finished
+    within `timeout` seconds (a host whose peers never join included);
+    every process is stopped before `launch` returns or raises."""
+    check_hosts(coordinator, num_hosts, host_id)
     dev = torch.device(device)
     check_backend(backend, dev.type, nproc)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise ValueError("device cuda asked for, but torch sees no CUDA device")
+    if coordinator is None:
+        host, port = "127.0.0.1", _free_port()
+    else:
+        host, port = parse_coordinator(coordinator)
+        if host_id == 0:
+            _check_bind(host, port)
+    layout = rank_layout(num_hosts, nproc, host_id)
+    ranks = [r for r, _, _ in layout]
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
-    port = _free_port()
-    procs = [
-        ctx.Process(target=_rank_main, args=(r, nproc, port, str(dev), backend, fn, tuple(args), results, timeout),
-                    daemon=True)
-        for r in range(nproc)
-    ]
-    for p in procs:
+    procs = {
+        r: ctx.Process(target=_rank_main,
+                       args=(r, l, nproc, num_hosts * nproc, host, port, is_loopback(host), (host_id, num_hosts),
+                             str(dev), backend, fn, tuple(args), results, timeout),
+                       daemon=True)
+        for r, l, _ in layout
+    }
+    for p in procs.values():
         p.start()
     outs, errors = {}, {}
 
@@ -145,7 +245,7 @@ def launch(fn, nproc: int, *, device, backend: str, args=(), timeout: float = 30
             try:
                 take(min(1.0, max(0.01, deadline - time.monotonic())))
             except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs) if r not in outs and p.exitcode not in (None, 0)]
+                dead = [r for r, p in procs.items() if r not in outs and p.exitcode not in (None, 0)]
                 if dead:
                     # a rank that raised has reported before it exited
                     with contextlib.suppress(queue_mod.Empty):
@@ -156,9 +256,9 @@ def launch(fn, nproc: int, *, device, backend: str, args=(), timeout: float = 30
     finally:
         # a finished world leaves on its own; a failed or late one is stopped
         grace = time.monotonic() + (30.0 if len(outs) == nproc else 0.0)
-        for p in procs:
+        for p in procs.values():
             p.join(timeout=max(0.0, grace - time.monotonic()))
-        for p in procs:
+        for p in procs.values():
             if p.is_alive():
                 p.terminate()
                 p.join(timeout=5.0)
@@ -166,10 +266,11 @@ def launch(fn, nproc: int, *, device, backend: str, args=(), timeout: float = 30
                 p.kill()
                 p.join()
         results.close()
+    where = "" if coordinator is None else f" (host {host_id} of {num_hosts}, coordinator {coordinator})"
     if errors:
         first = min(errors)
-        raise SPMDError(f"{len(errors)} of {nproc} ranks failed; rank {first}:\n{errors[first]}")
+        raise SPMDError(f"{len(errors)} of {nproc} ranks failed{where}; rank {first}:\n{errors[first]}")
     if len(outs) < nproc:
-        missing = sorted(set(range(nproc)) - set(outs))
-        raise SPMDError(f"ranks {missing} of {nproc} did not finish within {timeout:.0f} s")
-    return [outs[r] for r in range(nproc)]
+        missing = sorted(set(ranks) - set(outs))
+        raise SPMDError(f"ranks {missing} of {num_hosts * nproc} did not finish within {timeout:.0f} s{where}")
+    return [outs[r] for r in ranks]

@@ -42,7 +42,7 @@ import math
 import torch
 import torch.distributed as dist
 
-from ctdirect_tpu_torch.parallel.spmd import check_backend
+from ctdirect_tpu_torch.parallel.spmd import check_backend, local_world_size
 from ctdirect_tpu_torch.solver.cr_kernel import cr_solve_batched
 from ctdirect_tpu_torch.solver.graph import KERNEL_COUNTERS, CallGraph, signature
 from ctdirect_tpu_torch.solver.lanes import (
@@ -97,7 +97,7 @@ class ShardAxis:
         self.size = dist.get_world_size(self.group)
         self.backend = str(dist.get_backend(self.group))
         device_type = "cuda" if self.backend == "nccl" else "cpu"
-        check_backend(self.backend, device_type, dist.get_world_size())
+        check_backend(self.backend, device_type, local_world_size())
         self._peers = [dist.get_global_rank(self.group, i) for i in range(self.size)]
         self.capturable = self.backend == "nccl"
         self.messages = 0
