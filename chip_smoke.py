@@ -11,7 +11,7 @@ Phases (any failure raises and the script exits non-zero, printing no result):
   3. the CR kernel vs its plain PyTorch version at the MPC tick shape
      (P=128, bs=5, wb=7, B=512) in float32 and float64, plus a dense-residual
      check on 3 lanes; times of both (CUDA events, median of 20 calls for the
-     kernel, of 3-20 within a 2 s budget for the plain version);
+     kernel, the plain version's within PLAIN_BUDGET_MS);
   4. the front door: ct.solve(double integrator, N=100, trapeze) on the card
      against its analytic oracles, its structured block solves (warm-ups
      included) equal to the scan kernel's launches;
@@ -26,7 +26,7 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      kernel's launch count must grow by exactly ticks x 3 and max KKT stay
      below 1e-10; the replay's u0 and KKT (every tick) and final states must
      equal the eager tick's within GRAPH_TOL; p50 / p90 and solves/s of both;
-  6. the device split of 5 more ticks of each, eager and replayed
+  6. the device split of 3 more ticks of each, eager and replayed
      (torch.profiler): device busy and idle share, the CR kernel's share,
      kernel launches per tick, and the CR kernel's CUDA launches per tick as
      the profiler sees them, which must be the plan (3 x (3 + 3 log2 128) =
@@ -60,17 +60,19 @@ Phases (any failure raises and the script exits non-zero, printing no result):
  10. BASELINE config 2: goddard, Gauss-Legendre 2-stage constant control,
      N=200, tol 1e-8, adaptive mu, kkt_mode="cr", with the f64 block solve
      and with the f32 block solve + 2 refinement sweeps + Ruiz, each on one
-     transcribed DOCP three times: the eager solve (`run.eager`, ipm_solve),
-     the first compiled solve_docp (the batched IPM at B=1, its segments
-     captured as CUDA graphs after a warm-up each; wall, capture s, segment
-     graphs, pool MiB) and a replayed one; iterations, host syncs per
-     iteration and kernel launches of each, launches = block solves (+ the
-     warm-ups' in the first call). Every compiled solve successful, the
-     objective within 1e-2 of 1.01257; the f32 and f64 runs agreeing to 1e-7
-     in objective and 1e-4 in controls; the replay within GRAPH_TOL of the
-     same B=1 program run op by op over every field (bitwise expected), with
-     the same KKT solves, syncs and segment runs; against the eager solve the
-     same status and the objective within 1e-8 (iterations side by side);
+     transcribed DOCP: the eager solve (`run.eager`, ipm_solve) of its first
+     GD_REF_ITERS iterations, the first compiled solve_docp (the batched IPM
+     at B=1, its segments captured as CUDA graphs after a warm-up each; wall,
+     capture s, segment graphs, pool MiB) and a replayed one; iterations,
+     host syncs per iteration and kernel launches of each, launches = block
+     solves (+ the warm-ups' in the first call). Every compiled solve
+     successful, the objective within 1e-2 of 1.01257; the f32 and f64 runs
+     agreeing to 1e-7 in objective and 1e-4 in controls; over the first
+     GD_REF_ITERS iterations (the same options but max_iter, compiled: a
+     first call, then a replay), the replay within GRAPH_TOL of the same B=1
+     program run op by op over every field (bitwise expected), with the same
+     KKT solves, syncs and segment runs, and against the eager solve the
+     same status and iterations and the objective within 1e-8;
      then a replayed solve under torch.profiler: device busy and idle share,
      and the CR kernel's CUDA launches, which must be the block solves x
      (3 + 3 log2 256) = 27.
@@ -120,7 +122,7 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         (N=100, B=512 over batch=4, kkt_algorithm="cr", f32 block solve, 3
         Newton steps) from phase 5's warm state and x0 sequence, each rank
         replaying its own CUDA graph (captured by one call before the
-        counted run), 2 warm-up + 8 timed ticks: max KKT < 1e-10, each
+        counted run), 2 warm-up + 4 timed ticks: max KKT < 1e-10, each
         rank's CR kernel launches = 3 x ticks, u0 equal to an unsharded tick
         of the same rows to 1e-12;
      c. the 2-D tick, batch=2 x time=2, f64, through InsideTimeShardKKT,
@@ -128,8 +130,10 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         nothing): max KKT < 1e-10, u0 within 1e-10 of the unsharded f64
         tick, the ranks of each time group in agreement;
      d. BASELINE config 2 (Goddard GL2 N=200, f64, phase 10's options)
-        through ipm_solve(kkt=TimeShardedKKT) over time=2: status 0 and the
-        objective within 1e-8 of phase 10's f64 objective;
+        through ipm_solve(kkt=TimeShardedKKT) over time=2 for its first
+        GD_SHARD_ITERS iterations: the status, the iterations and the
+        objective within 1e-8 of the same iterations unsharded on the card
+        (the eager ipm_solve of phase 10's f64 DOCP solver);
      e. ctdirect_tpu_torch.entry.dryrun_multichip(4, cuda, gloo): all five
         legs; on every rank the batch-sharded solves of legs 1 and 4 run as
         the rank's own segment graphs (the all_gather outside them);
@@ -143,8 +147,10 @@ Phases (any failure raises and the script exits non-zero, printing no result):
         of the eager tick at every tick, max KKT < 1e-10, u0 within 1e-10
         of phase 5's unsharded tick; (iii) Goddard config 2 through
         DOCPSolver(kkt=TimeShardedKKT) over time=1, compiled (segment
-        graphs) against the eager ipm_solve(kkt=TimeShardedKKT): status 0
-        both, objective within 1e-8, and within 1e-8 of phase 10's. Each
+        graphs), status 0 and within 1e-8 of phase 10's objective; the eager
+        ipm_solve(kkt=TimeShardedKKT) of its first GD_REF_ITERS iterations
+        against the same iterations compiled: the same status, the objective
+        within 1e-8. Each
         prints its replayed and eager times and the NCCL messages per
         replay, which must be nonzero (none staged); each path's kernel
         launches (the root solve, P=1) are counted around its replays, and
@@ -154,15 +160,16 @@ Phases (any failure raises and the script exits non-zero, printing no result):
  15. BASELINE config 4, the orbit-transfer scenario batch, through
      ctdirect_tpu_torch.orbit_scenarios' run and checks at full width
      (midpoint N=500: a KKT chain of P=512, bs=11, wb=13) with ORBIT_CFG's
-     batch size and nominal KKT solve (the structured solve, on the scan
-     kernel: launches = its block solves): the compiled nominal solve held
-     to the JAX package's structured objective 0.17222008 at 1e-3; the scenario BatchSolver (kkt_mode="cr")
-     eager, first graphed call and replay, held to each other bitwise, each
-     with its kernel launches = its KKT solves (+ the warm-ups'); a profiled
-     graphed solve whose CR launches must be the KKT solves x 30; the
-     batch with its rows moved at random within their alignment classes
-     held to it bit for bit; three scenarios solved alone printed beside
-     their rows;
+     batch size, batch iterations and nominal KKT solve (the structured
+     solve, on the scan kernel: launches = its block solves): the compiled
+     nominal solve held to the JAX package's structured objective
+     0.17222008 at 1e-3; the scenario BatchSolver (kkt_mode="cr") eager,
+     first graphed call and replay, held to each other bitwise, each with
+     its kernel launches = its KKT solves (+ the warm-ups'); the batch with
+     its rows moved at random within their alignment classes, a graphed
+     solve under torch.profiler whose CR launches must be the KKT solves x
+     30, held to it bit for bit; three scenarios solved alone printed
+     beside their rows;
  16. a cut of the suite ladder through ctdirect_tpu_torch.sweep's
      run_sweep and checks (LADDER_CUT: the 10 problems at N=1000 and
      goddard_all at N=5000 with its per-cell refine 3, a chain of P=8,192
@@ -200,7 +207,15 @@ Phases (any failure raises and the script exits non-zero, printing no result):
      structured:f32, each a compiled first call and LAB_REPS replays
      (bitwise the first), its block solves on its mode's kernel (the scan
      kernel in f64 and f32, the CR kernel) and none on the other, status and
-     objective against the JAX package's on the CPU where recorded.
+     objective against the JAX package's on the CPU where recorded;
+ 19. the headline bench (ctdirect_tpu_torch.bench, bench.py's port) at full
+     width (the double integrator, trapeze N=100, B=512, 3 Newton steps a
+     tick, the CR block solve) with BENCH_REPS timed reps, with the f32 and
+     then the f64 block solve: its run and its report's checks (u0 finite
+     of shape (B, 1), max KKT < 1e-10, the replayed tick within 1e-13 of
+     the eager tick, the CR kernel launched 3 times a tick and the scan
+     kernel once a structured block solve of the cold start), its JSON line
+     printed.
 Each phase's wall is printed after it.
 Phase 3 also holds the kernel against its plain version at the cart-pole
 chain (P=64, bs=9, wb=13, B=1024 and BASELINE config 5's CP5_B a card,
@@ -305,6 +320,10 @@ CP_MIN_CONVERGED = 0.4375
 # N=200, with the options of tests/test_accuracy.py:78-84
 GD_N, GD_SCHEME, GD_OBJ = 200, "gauss_legendre_2_constant_control", 1.01257
 GD_OPTS = dict(tol=1e-8, mu_strategy="adaptive", kkt_mode="cr")
+# phase 10 holds the compiled solve to the eager solve and to the B=1 program
+# run op by op over the first this many iterations (the whole 56 took ~11 s
+# and ~14 s a block solve's dtype on the card, PERF.md)
+GD_REF_ITERS = 10
 P_GD, BS_GD, WB_GD = 256, 19, 8  # its KKT chain (bs + wb = 27), padded to a power of two
 P_W, BS_W, WB_W, B_W = 256, 30, 11, 256  # goddard_all GL3 at N=200 (width 41)
 # the widest chain (quadrotor N=150) and the longest (orbit_transfer N=300)
@@ -325,9 +344,15 @@ PHASE3_SHAPES = [(torch.float32, P_TICK, BS_TICK, WB_TICK, B), (torch.float64, P
                  (torch.float64, P_QR, BS_QR, WB_QR, 1), (torch.float64, P_OT, BS_OT, WB_OT, 1),
                  (torch.float64, P_O4, BS_O4, WB_O4, B_O4),
                  *((dt, p, BS_L, WB_L, 1) for p in (P_L5, P_L10) for dt in (torch.float32, torch.float64))]
-# the plain version's timing stops at 3 calls where 20 would take longer than
-# this (at the long B=1 chains): the script's time limit
-PLAIN_BUDGET_MS = 2000
+# phase 3 times the plain versions and the library call within these budgets
+# (the plain version's time is no yardstick, and one library call at the long
+# chains takes over a second): after a first call, as many more as fit in
+# the budget, none where the first alone passes it (it is then the time): the
+# script's time limit
+PLAIN_BUDGET_MS = 500
+LIBRARY_BUDGET_MS = 1000
+# --old and --old-scan time the two kernels in turns within this budget each
+TURNS_BUDGET_MS = 2000
 # the library yardstick solves at most this many dense systems (goddard_all at
 # B=256 would be 121 GB of f64 matrices)
 LIBRARY_MAX_B = 16
@@ -335,12 +360,6 @@ LIBRARY_MAX_B = 16
 # P=8,192 blocks is a 54 GB f64 matrix, and its LU works on a copy): beyond
 # it, the chain's first P' blocks, P' the largest power of two within it
 LIBRARY_MAX_BYTES = 16e9
-# NVIDIA's H100 SXM data sheet: the HBM3 rate; 67 TFLOP/s is its f32 rate outside
-# the tensor cores and its f64 rate on them (DMMA, which the small matrix
-# products of the reduction could use)
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
-SM_COUNT = 132  # its SMs: the scan kernel walks a chain on one of them
 MAX_STACK_BYTES = 1024
 # phase 3's chains of the scan kernel (the structured block solve), (dtype, N,
 # bs, wb, B): quadrotor's (phase 13's widest structured recipe, N=150),
@@ -436,17 +455,22 @@ CI_CARD_OVERRIDES = {name: dict(kkt_mode="structured")
 
 # phase 14: one gloo world of this many processes on the one card
 SHARD_WORLD = 4
-SHARD_WARMUP, SHARD_TICKS = 2, 8
-SHARD_TIMED_SOLVES = 5
+SHARD_WARMUP, SHARD_TICKS = 2, 4
+SHARD_TIMED_SOLVES = 2
+# 14d: Goddard config 2 over time=2 for its first this many iterations, held
+# to the same iterations unsharded on one card (over gloo the whole solve
+# took ~33 s, PERF.md; 14f's compiled time-sharded solve runs to the end)
+GD_SHARD_ITERS = 10
 # 14a's chains: the tick's and Goddard's, f64 (in phase 3's shapes)
 SHARD_CHAINS = {"tick": (P_TICK, BS_TICK, WB_TICK, B), "goddard": (P_GD, BS_GD, WB_GD, 1)}
 SHARD_TIMEOUT = 600.0
 # phase 15: BASELINE config 4 at full width (N=500: P=512, bs=11, wb=13) and
-# batch (B=2048); the nominal on the structured solve, the script's own (the
-# scan kernel; on PyTorch's plain scan it took ~210 s, PERF.md), and no
-# diagnostics (the stage split's ~125 s of profiling and attribution, the
-# alignment witness's ~120 s; the script's own run takes them)
-ORBIT_CFG = dict(N=500, B=2048, nominal_mode="structured", diagnostics=False)
+# batch (B=2048), 10 of the script's 30 batch iterations (each of its four
+# batch calls took ~23-31 s at 30, PERF.md); the nominal on the structured
+# solve, the script's own (the scan kernel; on PyTorch's plain scan it took
+# ~210 s, PERF.md), and no diagnostics (the stage split's ~125 s of profiling
+# and attribution, the shifts' ~120 s; the script's own run takes them)
+ORBIT_CFG = dict(N=500, B=2048, max_iter=10, nominal_mode="structured", diagnostics=False)
 # phase 17: BASELINE config 5 through multihost.run in a one-rank NCCL world,
 # (per-card batch, timed ticks) a problem; the script's own run (`python -m
 # ctdirect_tpu_torch.multihost --nproc 4`) takes cart-pole at its full
@@ -459,6 +483,8 @@ TWO_HOSTS_SOLVER_B = 256
 # problems and four configs) at this N, each config a first call and this
 # many replays
 LAB_N, LAB_REPS = 1000, 1
+# phase 19: the headline bench at full width, this many timed reps (its own run: 30)
+BENCH_REPS = 10
 
 
 def ci_fixtures(names):
@@ -499,14 +525,15 @@ def event_ms(fn):
     return start.elapsed_time(end)
 
 
-def median_ms(fn, calls=20, budget_ms=None):
+def median_ms(fn, calls=20, budget_ms=None, min_calls=3):
     """Median CUDA-event ms of `calls` calls after a warm-up call; with
-    `budget_ms`, fewer calls (at least 3) where the warm-up says they would
-    take longer."""
+    `budget_ms`, fewer calls (at least `min_calls`) where the warm-up says
+    they would take longer; with min_calls=0 a first call that alone takes
+    longer is the measurement."""
     first = event_ms(fn)
     if budget_ms is not None:
-        calls = max(3, min(calls, int(budget_ms / max(first, 1e-3))))
-    return float(np.median([event_ms(fn) for _ in range(calls)]))
+        calls = max(min_calls, min(calls, int(budget_ms / max(first, 1e-3))))
+    return float(np.median([event_ms(fn) for _ in range(calls)])) if calls else first
 
 
 def grid_per_solve(P):
@@ -584,23 +611,6 @@ def old_scan_kernel(source):
     return solve
 
 
-def bound(dtype, P, bs, wb, nb):
-    """(bound ms, what sets it, bytes, flops) of one solve: each input read
-    once and each output written once, over the HBM rate; the operations the
-    reduction needs, over PEAK_FLOP_S. Per odd block: the inverse of A_o
-    (2 bs^3), the five bs x bs products of the couplings and Schur updates
-    (10 bs^3), the three products with E_o (6 bs^2 wb), the border term
-    (2 bs wb^2), the right-hand sides and the down-sweep step (12 bs^2 +
-    4 bs wb); then one dense LU solve of the root, n = bs + wb (2n^3/3 + 2n^2)."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * nb * (P * (2 * bs * bs + bs * wb + 2 * bs) + wb * wb + 2 * wb)
-    per_odd = 12 * bs**3 + 6 * bs * bs * wb + 2 * bs * wb * wb + 12 * bs * bs + 4 * bs * wb
-    n = bs + wb
-    flops = nb * ((P - 1) * per_odd + 2 * n**3 / 3 + 2 * n * n)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S[dtype] * 1e3
-    return (t_bytes, "bytes", nbytes, flops) if t_bytes >= t_ops else (t_ops, "operations", nbytes, flops)
-
-
 def dense_system(chain, lanes):
     """The first `lanes` instances of a lane-minor chain as dense (n x n)
     matrices and right-hand sides on the card, n = P bs + wb."""
@@ -651,10 +661,12 @@ def phase_kernel_vs_plain(kernel, old=None):
     record per shape."""
     from torch_helpers import lane_residuals, relative_residual
 
+    from ctdirect_tpu_torch.solver.cr_kernel import solve_cost
     from ctdirect_tpu_torch.solver.lanes import cr_solve_lanes
 
     results = []
     for dtype, P, bs, wb, nb in PHASE3_SHAPES:
+        t_shape = time.perf_counter()
         itemsize = torch.finfo(dtype).bits // 8
         chain = random_chain(P, bs, wb, nb, dtype)
         torch.cuda.synchronize()
@@ -691,21 +703,21 @@ def phase_kernel_vs_plain(kernel, old=None):
             raise AssertionError(f"kernel {dtype} at P={P} bs={bs} wb={wb} B={nb}: dense residual {resid:.3e}")
         ms = median_ms(lambda: kernel(*chain))
         split = launch_split(kernel, chain)
-        plain_ms = median_ms(lambda: cr_solve_lanes(*chain), budget_ms=PLAIN_BUDGET_MS)
+        plain_ms = median_ms(lambda: cr_solve_lanes(*chain), budget_ms=PLAIN_BUDGET_MS, min_calls=0)
         library_ms, lib_b, lib_p, lib_n, lib_note = library_yardstick(chain, Xp, nb)
-        bound_ms, bound_by, nbytes, flops = bound(dtype, P, bs, wb, nb)
+        bound_ms, bound_by, nbytes, flops = solve_cost(dtype, P, bs, wb, nb)
         wpb = plan[1][2] // 32
         form = f"level-parallel, {wpb} warp(s) per block at the first level"
         log(f"CR kernel {dtype} at P={P} bs={bs} wb={wb} B={nb}: max abs err {err:.3e} vs plain, dense "
             f"residual {resid:.3e} ({lanes}); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, library "
             f"torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={lib_n}, {lib_note}) (CUDA events, median of "
-            f"20 / 3-20 / 5 or 3); bound {1e3 * bound_ms:.3f} us "
-            f"set by {bound_by} ({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), kernel at "
+            f"20 / 0-20 within {PLAIN_BUDGET_MS} ms / 0-5 within {LIBRARY_BUDGET_MS} ms after the first); bound "
+            f"{1e3 * bound_ms:.3f} us set by {bound_by} ({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), kernel at "
             f"{100 * bound_ms / ms:.3f}% of it; form: {form}; {grid} CUDA launches per solve; device memory "
             f"free {free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of {total / 2**30:.2f} across the first "
             f"launch, {outside / 2**20:.1f} MiB of it outside PyTorch's allocator; device ms per solve by kernel "
             f"(torch.profiler, 5 solves): " + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
-            + f" (sum {sum(split.values()):.4f})")
+            + f" (sum {sum(split.values()):.4f}); {time.perf_counter() - t_shape:.1f} s for the shape")
         results.append(dict(dtype=str(dtype).replace("torch.", ""), P=P, bs=bs, wb=wb, B=nb, form=form,
                             grid_launches_per_solve=grid, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                             library_ms=library_ms, library_B=lib_b, library_P=lib_p, bound_us=1e3 * bound_ms, bound_by=bound_by,
@@ -720,7 +732,7 @@ def phase_kernel_vs_plain(kernel, old=None):
             turns = {"old": [], "new": []}
             for tag in ("old", "new", "new", "old"):
                 fn = (lambda: old(*chain)) if tag == "old" else (lambda: kernel(*chain))
-                turns[tag].append(median_ms(fn, budget_ms=2000))
+                turns[tag].append(median_ms(fn, budget_ms=TURNS_BUDGET_MS))
             results[-1].update(old_ms=turns["old"], new_ms=turns["new"], old_max_abs_err=old_err)
             log(f"  old kernel at the same shape: max abs err {old_err:.3e} vs plain; old {turns['old']} "
                 f"ms, new {turns['new']} ms (in turns old, new, new, old; CUDA events, median of up to 20)")
@@ -736,28 +748,6 @@ def shape_ms(kres, dtype, P, bs, wb, nb):
     """The kernel's per-launch ms measured in phase 3 at one shape."""
     tag = str(dtype).replace("torch.", "")
     return next(r["ms"] for r in kres if (r["dtype"], r["P"], r["bs"], r["wb"], r["B"]) == (tag, P, bs, wb, nb))
-
-
-def scan_bound(dtype, N, bs, wb, nb):
-    """(bound ms, what sets it, bytes, flops, latency floor ms) of one scan
-    solve of nb chains: each input read once and each output written once,
-    over the HBM rate; the operations of the block elimination over
-    PEAK_FLOP_S. Per block: the inverse (2 bs^3), Ainv E and Ainv r (2 bs^2
-    wb + 2 bs^2), the border terms (2 bs wb^2 + 2 bs wb), the back sweep
-    (4 bs^2 + 2 bs wb); per block after the first, C and the Schur updates
-    of A, E and r (4 bs^3 + 2 bs^2 wb + 2 bs^2); then the border solve (2
-    wb^3/3 + 2 wb^2). The latency floor: one chain's operations at one SM's
-    share of the peak (its N steps run in order on one SM)."""
-    itemsize = torch.finfo(dtype).bits // 8
-    nbytes = itemsize * nb * (N * (bs * bs + bs * wb + 2 * bs) + (N - 1) * bs * bs + wb * wb + 2 * wb)
-    chain = (N * (2 * bs**3 + 2 * bs * bs * wb + 2 * bs * wb * wb + 6 * bs * bs + 4 * bs * wb)
-             + (N - 1) * (4 * bs**3 + 2 * bs * bs * wb + 2 * bs * bs) + 2 * wb**3 / 3 + 2 * wb * wb)
-    flops = nb * chain
-    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S[dtype] * 1e3
-    floor = chain / (PEAK_FLOP_S[dtype] / SM_COUNT) * 1e3
-    if t_bytes >= t_ops:
-        return t_bytes, "bytes", nbytes, flops, floor
-    return t_ops, "operations", nbytes, flops, floor
 
 
 def library_yardstick(chain, X, lanes):
@@ -786,7 +776,8 @@ def library_yardstick(chain, X, lanes):
         note = f"max diff to plain {err:.2e}"
     else:
         note = f"the chain's first {lib_p} blocks: {n}^2 would pass {LIBRARY_MAX_BYTES / 1e9:g} GB"
-    ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5 if lib_p == P else 3)
+    ms = median_ms(lambda: torch.linalg.solve(K, rhs), calls=5 if lib_p == P else 3, budget_ms=LIBRARY_BUDGET_MS,
+                   min_calls=0)
     del K, rhs
     return ms, lib_b, lib_p, lib_n, note
 
@@ -798,15 +789,17 @@ def phase_scan_vs_plain(scan, old=None):
     block-matvec residual of every instance, the device memory across the
     first launch, and the times of the kernel, the plain version and the
     library call (library_yardstick), beside the bound and the latency
-    floor (scan_bound), µs per step and the resident chains per SM; with
+    floor (scan_kernel.solve_cost, latency_floor_ms), µs per step and the
+    resident chains per SM; with
     `old` (old_scan_kernel), the earlier kernel held to the current one bit
     for bit and both timed in turns. Returns one record per shape."""
     from torch_helpers import lane_residuals
 
-    from ctdirect_tpu_torch.solver.scan_kernel import scan_solve_plain
+    from ctdirect_tpu_torch.solver.scan_kernel import SM_COUNT, latency_floor_ms, scan_solve_plain, solve_cost
 
     results = []
     for dtype, N, bs, wb, nb in SCAN_SHAPES:
+        t_shape = time.perf_counter()
         lane_chain = random_chain(N, bs, wb, nb, dtype, shift=4.0 + bs)  # lane-minor, N blocks
         A, Bp, E, F, r, rb = (x.movedim(-1, 0).contiguous() for x in lane_chain)
         chain = (A, Bp[:, : N - 1].contiguous(), E, F, r, rb)
@@ -822,8 +815,11 @@ def phase_scan_vs_plain(scan, old=None):
         if not outside < 2**30:
             raise AssertionError(f"scan kernel at N={N} bs={bs} wb={wb} B={nb}: the first launch took "
                                  f"{outside / 2**30:.2f} GiB of device memory outside PyTorch's allocator")
-        Xp, xbp = scan_solve_plain(*chain)
-        torch.cuda.synchronize()
+        # the plain version's time: this call's, then more within PLAIN_BUDGET_MS
+        # (at the long chains one call takes seconds)
+        plain_out = []
+        plain = [event_ms(lambda: plain_out.append(scan_solve_plain(*chain)))]
+        (Xp, xbp), = plain_out
         for name, got, want in (("X", X, Xp), ("xb", xb, xbp)):
             if got.shape != want.shape or not torch.isfinite(got).all():
                 raise AssertionError(f"scan kernel {dtype} at N={N}: {name} not finite or of shape "
@@ -848,17 +844,15 @@ def phase_scan_vs_plain(scan, old=None):
             turns = {"old": [], "new": []}
             for tag in ("old", "new", "new", "old"):
                 fn = (lambda: old(*chain)) if tag == "old" else (lambda: scan(*chain))
-                turns[tag].append(median_ms(fn, budget_ms=PLAIN_BUDGET_MS))
+                turns[tag].append(median_ms(fn, budget_ms=TURNS_BUDGET_MS))
             old_rec = dict(old_ms=turns["old"], new_ms=turns["new"], old_max_abs_diff=max(old_dx, old_dxb))
             del Xo, xbo
-        # the plain version's calls take seconds at the long chains: the comparison call
-        # above is their warm-up, then 1-20 calls within PLAIN_BUDGET_MS
-        plain = [event_ms(lambda: scan_solve_plain(*chain))]
         plain += [event_ms(lambda: scan_solve_plain(*chain))
                   for _ in range(min(20, int(PLAIN_BUDGET_MS / max(plain[0], 1e-3))) - 1)]
         plain_ms = float(np.median(plain))
         library_ms, lib_b, lib_n_blocks, lib_n, lib_note = library_yardstick(lane_chain, Xp.permute(1, 2, 0), nb)
-        bound_ms, bound_by, nbytes, flops, floor_ms = scan_bound(dtype, N, bs, wb, nb)
+        bound_ms, bound_by, nbytes, flops = solve_cost(dtype, N, bs, wb, nb)
+        floor_ms = latency_floor_ms(dtype, N, bs, wb)
         smem = scan.smem_bytes(bs, wb, torch.finfo(dtype).bits // 8)
         per_cta, resident = scan.launch_shape(bs, wb, nb, torch.finfo(dtype).bits // 8)
         if old_rec:
@@ -868,14 +862,15 @@ def phase_scan_vs_plain(scan, old=None):
         log(f"scan kernel {dtype} at N={N} bs={bs} wb={wb} B={nb}: max abs err {err:.3e} vs plain (scale "
             f"{scale:.3g}), residual {resid:.3e} (every instance); kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
             f"library torch.linalg.solve {library_ms:.3f} ms at B={lib_b} (n={lib_n}, {lib_note}) (CUDA events, "
-            f"median of 20 / 1-20 / 5 or 3); bound {1e3 * bound_ms:.3f} us set by {bound_by} ({nbytes / 1e6:.3f} "
-            f"MB, {flops / 1e9:.4f} GFLOP), kernel at {100 * bound_ms / ms:.3f}% of it; latency floor (one "
-            f"chain's operations on one SM) {1e3 * floor_ms:.3f} us, kernel at {100 * floor_ms / ms:.2f}% of "
-            f"it; {1e3 * ms / N:.3f} us per step; one launch of {-(-nb // per_cta)} CTAs x {64 * per_cta} threads "
+            f"median of 20 / 1-20 within {PLAIN_BUDGET_MS} ms, the first the comparison call / 0-5 within "
+            f"{LIBRARY_BUDGET_MS} ms after the first); bound {1e3 * bound_ms:.3f} us set by {bound_by} "
+            f"({nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} GFLOP), kernel at {100 * bound_ms / ms:.3f}% of it; latency "
+            f"floor (one chain's operations on one SM) {1e3 * floor_ms:.3f} us, kernel at {100 * floor_ms / ms:.2f}% "
+            f"of it; {1e3 * ms / N:.3f} us per step; one launch of {-(-nb // per_cta)} CTAs x {64 * per_cta} threads "
             f"({per_cta} chains a CTA, two warps and {smem} B of shared memory a chain), {resident} chains "
             f"resident per SM ({resident * SM_COUNT} on the card); device memory free "
             f"{free0 / 2**30:.2f} -> {free1 / 2**30:.2f} GiB of {total / 2**30:.2f}, {outside / 2**20:.1f} MiB "
-            f"outside PyTorch's allocator")
+            f"outside PyTorch's allocator; {time.perf_counter() - t_shape:.1f} s for the shape")
         results.append(dict(dtype=str(dtype).replace("torch.", ""), N=N, bs=bs, wb=wb, B=nb, max_abs_err=err,
                             scale=scale, residual=resid, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             library_B=lib_b, library_N=lib_n_blocks, bound_us=1e3 * bound_ms, bound_by=bound_by,
@@ -927,27 +922,6 @@ def phase_front_door(ct, get_problem, scan):
     return rec
 
 
-def tick_run(tick, states, xs, warmup):
-    """xs through `tick` from `states`, each tick timed by CUDA events and on
-    the host clock (the first `warmup` untimed); returns the per-tick u0 and
-    KKT, the final states, the times and the max KKT."""
-    tick_ms, host_ms, u0s, kkts = [], [], [], []
-    for k, x0 in enumerate(xs):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start.record()
-        states, u0, kkt, viol = tick(states, x0)
-        end.record()
-        end.synchronize()
-        if k >= warmup:
-            tick_ms.append(start.elapsed_time(end))
-            host_ms.append((time.perf_counter() - h0) * 1e3)
-        u0s.append(u0)
-        kkts.append(kkt)
-    return dict(states=states, u0s=u0s, kkts=kkts, tick_ms=tick_ms, host_ms=host_ms,
-                kkt_max=max(k.max().item() for k in kkts), viol=viol)
-
-
 def eager_and_replayed(name, kernel, ctrl, states0, xs, warmup, batch):
     """Phase 5's (and 8's) comparison: the eager tick and the replayed CUDA
     graph from the same warm state over the same x0 sequence, the kernel's
@@ -955,6 +929,8 @@ def eager_and_replayed(name, kernel, ctrl, states0, xs, warmup, batch):
     captured by one call before its counted run. Holds u0, KKT (every tick)
     and the final states of the replay to the eager tick (<= GRAPH_TOL abs).
     Returns both runs with their launches."""
+    from ctdirect_tpu_torch.bench import tick_run
+
     kernel.reset_counts()
     eager = tick_run(ctrl.eager, states0, xs, warmup)
     eager.update(launches=kernel.launches, grid=kernel.grid_launches)
@@ -1072,46 +1048,14 @@ def seen_note(rec):
     return f"; CUPTI dropped {rec['dropped']} activity records over {rec['tries']} profiles"
 
 
-def stage_split(make_ctrl, states, xs, ticks):
-    """Device ms per tick by stage of the eager tick (utils/profiling.py's
-    stage_split), for a controller built by make_ctrl() while these run in
-    profiler ranges (for this run only): `mpc.shift_state` (shift), the
-    resolve's gradients and vector-Jacobian products (derivatives: grad f,
-    J^T lam), and the KKT operator's prepare, _assemble, _block_solve and
-    the rest of its solve (kkt_ranges). A kernel launched outside every
-    range goes to "update" (x0 rows, barrier terms, residuals, the step to
-    the boundary, the state update, the exit norms). The replay runs the
-    same kernels in the same order."""
-    from ctdirect_tpu_torch.parallel import mpc
-    from ctdirect_tpu_torch.solver import resolve
-    from ctdirect_tpu_torch.utils import profiling
-    from ctdirect_tpu_torch.utils.profiling import device_profile, kkt_ranges, ranged
-
-    grad, vjp, shift = resolve.grad, resolve.vjp, mpc.shift_state
-
-    def vjp_ranged(fn, *primals):
-        out, back = ranged("derivatives", vjp)(fn, *primals)
-        return out, ranged("derivatives", back)
-
-    resolve.grad, resolve.vjp = (lambda fn: ranged("derivatives", grad(fn))), vjp_ranged
-    mpc.shift_state = ranged("shift", shift)
-    try:
-        ctrl = make_ctrl()
-        with kkt_ranges(ctrl.kkt):
-            _, prof, _, _ = device_profile(ticking(ctrl.eager, states, xs, ticks))
-    finally:
-        resolve.grad, resolve.vjp, mpc.shift_state = grad, vjp, shift
-    return profiling.stage_split(prof, ticks, outside="update")
-
-
-def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
+def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=3, P=None):
     """Device busy/idle share of a few eager and replayed ticks, the CR
     kernel's part, and its CUDA launches per replayed tick seen by the
     profiler (the witness that the graph runs the kernel, apart from the
     wrapper's counts): ITERS x the plan's launches of one solve
     (profiling.kernel_events, which raises otherwise). Then the stage split
-    of the eager tick (stage_split)."""
-    from ctdirect_tpu_torch.utils.profiling import kernel_events
+    of the eager tick (utils/profiling.py's tick_stage_split)."""
+    from ctdirect_tpu_torch.utils.profiling import kernel_events, tick_stage_split
 
     P = P or chain_blocks(N)
     want = ITERS * grid_per_solve(P)
@@ -1135,7 +1079,7 @@ def phase_device_split(name, ctrl, make_ctrl, states, xs, ticks=5, P=None):
             f"CR kernel {cr:.3f} ms/tick ({100 * cr / busy:.1f}% of busy, {cr_launches:.0f} CUDA launches of it "
             f"seen per tick, planned {want}), other kernels {busy - cr:.3f} ms/tick, {launches:.0f} kernel "
             f"launches/tick{seen_note(rec)}")
-    split = stage_split(make_ctrl, states, xs, ticks)
+    split = tick_stage_split(make_ctrl, states, xs, ticks)
     total = sum(split.values())
     log(f"  stage split, {name} (eager tick, device ms per tick, {ticks} ticks): "
         + ", ".join(f"{k} {v:.3f} ({100 * v / total:.1f}%)" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
@@ -1373,13 +1317,15 @@ def phase_goddard(ct, get_problem, kernel, kres):
         docp = ct.transcribe(p.ocp, grid_size=GD_N, scheme=GD_SCHEME, device="cuda")
         run = _get_solver(docp, opts)
         args = (docp.initial_guess(p.init), docp._z_lb, docp._z_ub, docp._c_lb, docp._c_ub)
+        # the references' solver: the same options but GD_REF_ITERS iterations
+        ref_run = _get_solver(docp, opts.replace(max_iter=GD_REF_ITERS))
         log(f"goddard GL2 N={GD_N} cr, {tag} block solve{' + 2 refinement sweeps + Ruiz' * (tag == 'f32')}: "
-            f"eager, first compiled call, replayed call (one DOCP)")
-        blocks0 = run.kkt.block_solves
-        (eager, _), wall, launches, grid = timed_solve(kernel, lambda: run.eager(*args))
-        if launches != run.kkt.block_solves - blocks0:
+            f"eager (its first {GD_REF_ITERS} iterations), first compiled call, replayed call (one DOCP)")
+        blocks0 = ref_run.kkt.block_solves
+        (eager, _), wall, launches, grid = timed_solve(kernel, lambda: ref_run.eager(*args))
+        if launches != ref_run.kkt.block_solves - blocks0:
             raise AssertionError(f"goddard {tag} eager: kernel launched {launches} times, "
-                                 f"{run.kkt.block_solves - blocks0} block solves")
+                                 f"{ref_run.kkt.block_solves - blocks0} block solves")
         paths.append(path_record(f"goddard_gl2_N{GD_N}_{tag}_eager", dtype, launches, grid, launches * per))
         share = launches * shape_ms(kres, dtype, P_GD, BS_GD, WB_GD, 1) / 1e3 / wall
         log(f"  eager: status {eager.status}, {eager.iterations} iterations, objective {float(eager.objective)!r}, "
@@ -1412,32 +1358,39 @@ def phase_goddard(ct, get_problem, kernel, kres):
             row[call] = dict(wall=wall, syncs=st.host_syncs / max(st.iterations, 1), launches=launches)
         row.update(capture_s=run.graph.capture_s, captures=run.captures, pool_mib=run.graph.pool_bytes / 2**20)
 
-        # the replay against the same B=1 program op by op, and against the eager solve
-        run.stats = BatchStats()
-        got = run(*args)
-        counts, run.stats = run.stats, BatchStats()
-        ref = run.batched(BatchGraph(run.program.segments, graph_counters(run.kkt), "cuda", capture=False), *args)
+        # the first GD_REF_ITERS iterations compiled (a first call that captures,
+        # then a replay), against the same B=1 program run op by op and against
+        # the eager solve
+        ref_run(*args)
+        ref_run.stats = BatchStats()
+        got = ref_run(*args)
+        counts, ref_run.stats = ref_run.stats, BatchStats()
+        ref, op_ms = _host_ms(lambda: ref_run.batched(BatchGraph(ref_run.program.segments, graph_counters(ref_run.kkt),
+                                                                 "cuda", capture=False), *args))
         diff = solve_diff(got, ref)
-        if not (diff <= GRAPH_TOL and counts == run.stats):
+        if not (diff <= GRAPH_TOL and counts == ref_run.stats):
             raise AssertionError(f"goddard {tag}: the replay differs from the B=1 program op by op by {diff:.3e} "
-                                 f"(bound {GRAPH_TOL:g}), stats {counts} vs {run.stats}")
+                                 f"(bound {GRAPH_TOL:g}), stats {counts} vs {ref_run.stats}")
         res = got[0]
         rel = abs(float(res.objective) - float(eager.objective)) / abs(float(eager.objective))
-        if not (res.status == eager.status and rel <= 1e-8):
-            raise AssertionError(f"goddard {tag}: compiled status {res.status}, objective {float(res.objective)!r} "
-                                 f"vs eager status {eager.status}, {float(eager.objective)!r}")
-        log(f"  replay vs the B=1 program op by op: max abs diff {diff:.3e} over every field "
-            f"({'bitwise equal' if diff == 0 else 'not bitwise'}; bound {GRAPH_TOL:g}), same KKT solves, syncs and "
-            f"segment runs; vs eager: status {res.status} both, iterations {res.iterations} compiled vs "
-            f"{eager.iterations} eager, objective rel diff {rel:.2e} (bound 1e-8); speed-up of the replay over the "
-            f"eager solve {row['eager_s'] / row['replayed call']['wall']:.2f}x")
+        if not (res.status == eager.status and res.iterations == eager.iterations and rel <= 1e-8):
+            raise AssertionError(f"goddard {tag}: compiled status {res.status}, {res.iterations} iterations, "
+                                 f"objective {float(res.objective)!r} vs eager status {eager.status}, "
+                                 f"{eager.iterations} iterations, {float(eager.objective)!r}")
+        per_it = (row["eager_s"] / eager.iterations) / (row["replayed call"]["wall"] / sol.iterations)
+        log(f"  the first {GD_REF_ITERS} iterations compiled, replayed vs the B=1 program op by op ({op_ms / 1e3:.3f} "
+            f"s): max abs diff {diff:.3e} over every field ({'bitwise equal' if diff == 0 else 'not bitwise'}; bound "
+            f"{GRAPH_TOL:g}), same KKT solves, syncs and segment runs; vs eager: status {res.status} both, iterations "
+            f"{res.iterations} both, objective rel diff {rel:.2e} (bound 1e-8); speed-up of the replay over the "
+            f"eager solve {per_it:.2f}x an iteration")
 
+        full = run(*args)  # a replay of the whole solve, which the profiled ones are held to
         profiled = []
         try:
             split = profiled_solve(lambda: profiled.append(run(*args)), lambda: run.kkt.block_solves, per)
         except AssertionError as e:
             raise AssertionError(f"goddard {tag}, a replayed solve's CR kernel (block solves x {per}): {e}") from None
-        pdiff = max(solve_diff(r, got) for r in profiled)
+        pdiff = max(solve_diff(r, full) for r in profiled)
         if not pdiff <= GRAPH_TOL:
             raise AssertionError(f"goddard {tag}: a replay under torch.profiler differs from the replay by "
                                  f"{pdiff:.3e} (bound {GRAPH_TOL:g}) in one of its {len(profiled)} profiles")
@@ -1748,7 +1701,13 @@ def shard_rank(world, payload):
     mesh_t = world.mesh((world.size,), ("time",))
     mesh_b = world.mesh((world.size,), ("batch",))
     mesh_2d = world.mesh((2, world.size // 2), ("batch", "time"))
-    out = dict(rank=world.rank, dcr=[])
+    out = dict(rank=world.rank, dcr=[], secs={})
+    t_part = time.perf_counter()
+
+    def part_done(what):  # this rank's seconds per part
+        nonlocal t_part
+        out["secs"][what] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
 
     # 14a: the distributed CR against the plain CR and the kernel
     for D, mesh in ((2, mesh_2d), (4, mesh_t)):
@@ -1795,10 +1754,14 @@ def shard_rank(world, payload):
                     launches=kernel.launches, grid_launches=kernel.grid_launches, graphed=ctrl.graphed,
                     captures=ctrl.captures, first_s=first_s)
 
+    part_done("14a")
+
     # 14b: the batch-sharded RTI tick, f32 block solve through the kernel
     ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, kkt_algorithm="cr",
                          kkt_solve_dtype=torch.float32, mesh=mesh_b, device=dev)
     out["tick"] = ticks(ctrl, payload["warm32"])
+
+    part_done("14b")
 
     # 14c: the 2-D tick, f64, the KKT solve distributed over the time axis
     ctrl = MPCController(docp, x0_boundary_rows=[0, 1], resolve_iters=ITERS, mesh=mesh_2d, time_axis="time",
@@ -1807,19 +1770,22 @@ def shard_rank(world, payload):
     out["tick_2d"].update(messages=ctrl.kkt.axis.messages, staged=ctrl.kkt.axis.staged_messages,
                           block_solves=ctrl.kkt.block_solves)
 
-    # 14d: BASELINE config 2 through the full IPM over the time axis
+    part_done("14c")
+
+    # 14d: BASELINE config 2's first iterations of the full IPM over the time axis
     gp = get_problem("goddard")
     gd = ct.transcribe(gp.ocp, grid_size=GD_N, scheme=GD_SCHEME, device=dev)
     kkt = TimeShardedKKT(gd, mesh_2d, axis="time")
     res, ms = _host_ms(lambda: ipm_solve(
         gd.nlp_objective, gd.constraints, make_spec(gd._z_lb, gd._z_ub, gd._c_lb, gd._c_ub),
-        gd.initial_guess(gp.init), gd._z_lb, gd._z_ub, gd._c_lb, gd._c_ub, options=ct.IPMOptions(**GD_OPTS),
-        kkt=kkt, device=dev, dtype=gd.dtype))
+        gd.initial_guess(gp.init), gd._z_lb, gd._z_ub, gd._c_lb, gd._c_ub,
+        options=ct.IPMOptions(**GD_OPTS, max_iter=GD_SHARD_ITERS), kkt=kkt, device=dev, dtype=gd.dtype))
     # the IPM minimizes; the user-sense objective of a max problem is its negative
     objective = -float(res.objective) if gp.ocp.maximize else float(res.objective)
     out["goddard"] = dict(status=int(res.status), objective=objective, iterations=int(res.iterations),
                           wall_s=ms / 1e3, block_solves=kkt.block_solves, messages=kkt.axis.messages,
                           staged=kkt.axis.staged_messages, finite=bool(torch.isfinite(res.z).all()))
+    part_done("14d")
     return out
 
 
@@ -1828,9 +1794,21 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
     the card (14a-14d, shard_rank), then the entry's dry run (14e), then the
     compiled paths over NCCL (14f). Returns the kernel path records of the
     batch-sharded tick and of 14f."""
+    import ctdirect_tpu_torch as ct
     from ctdirect_tpu_torch.entry import dryrun_multichip
     from ctdirect_tpu_torch.parallel import broadcast_state
     from ctdirect_tpu_torch.parallel.spmd import launch
+    from ctdirect_tpu_torch.problems import get_problem
+    from ctdirect_tpu_torch.solver.interface import _get_solver
+
+    # 14d's reference: Goddard's first GD_SHARD_ITERS iterations unsharded, eager
+    gp = get_problem("goddard")
+    gd = ct.transcribe(gp.ocp, grid_size=GD_N, scheme=GD_SCHEME, device="cuda")
+    (gd_ref, _), gd_ref_ms = _host_ms(lambda: _get_solver(gd, ct.IPMOptions(**GD_OPTS, max_iter=GD_SHARD_ITERS)).eager(
+        gd.initial_guess(gp.init), gd._z_lb, gd._z_ub, gd._c_lb, gd._c_ub))
+    gd_ref = dict(status=int(gd_ref.status), iterations=int(gd_ref.iterations),
+                  objective=-float(gd_ref.objective) if gp.ocp.maximize else float(gd_ref.objective))
+    del gd
 
     n_ticks = SHARD_WARMUP + SHARD_TICKS
     # the unsharded ticks of the same rows from the same state: phase 5's controllers
@@ -1847,7 +1825,8 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
     t0 = time.perf_counter()
     ranks = launch(shard_rank, SHARD_WORLD, device="cuda", backend="gloo", args=(payload,), timeout=SHARD_TIMEOUT)
     log(f"sharded paths: a gloo world of {SHARD_WORLD} ranks on one card (every message staged through the "
-        f"host), {time.perf_counter() - t0:.1f} s")
+        f"host), {time.perf_counter() - t0:.1f} s; rank 0's s by part: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["secs"].items()))
 
     # 14a
     k3 = {tag: shape_ms(kres, torch.float64, *shape) for tag, shape in SHARD_CHAINS.items()}
@@ -1910,14 +1889,17 @@ def phase_sharded(kernel, kres, main, gd_f64_objective, xs):
     # 14d
     for r in ranks:
         g = r["goddard"]
-        rel = abs(g["objective"] - gd_f64_objective) / abs(gd_f64_objective)
-        if not (g["finite"] and g["status"] == 0 and rel <= 1e-8):
-            raise AssertionError(f"goddard over time=2 rank {r['rank']}: {g}, rel diff {rel:.3e} to phase 10")
+        rel = abs(g["objective"] - gd_ref["objective"]) / abs(gd_ref["objective"])
+        if not (g["finite"] and (g["status"], g["iterations"]) == (gd_ref["status"], gd_ref["iterations"])
+                and rel <= 1e-8):
+            raise AssertionError(f"goddard over time=2 rank {r['rank']}: {g}, unsharded {gd_ref}, objective rel diff "
+                                 f"{rel:.3e}")
     g = ranks[0]["goddard"]
-    log(f"goddard GL2 N={GD_N} f64, ipm_solve(kkt=TimeShardedKKT) over time=2: status {g['status']}, "
-        f"{g['iterations']} iterations, objective {g['objective']!r} (phase 10 f64: {gd_f64_objective!r}), "
-        f"walls {', '.join('%.2f' % r['goddard']['wall_s'] for r in ranks)} s; {g['block_solves']} block solves, "
-        f"{g['messages']} messages on rank 0 ({g['staged']} staged)")
+    log(f"goddard GL2 N={GD_N} f64, ipm_solve(kkt=TimeShardedKKT) over time=2, its first {GD_SHARD_ITERS} "
+        f"iterations: status {g['status']}, {g['iterations']} iterations, objective {g['objective']!r} (unsharded "
+        f"on the card: status {gd_ref['status']}, {gd_ref['iterations']} iterations, {gd_ref['objective']!r}, "
+        f"{gd_ref_ms / 1e3:.2f} s), walls {', '.join('%.2f' % r['goddard']['wall_s'] for r in ranks)} s; "
+        f"{g['block_solves']} block solves, {g['messages']} messages on rank 0 ({g['staged']} staged)")
     msgs = sum(r["dcr"][-1]["messages"] + r["tick_2d"]["messages"] + r["goddard"]["messages"] for r in ranks)
     staged = sum(r["dcr"][-1]["staged"] + r["tick_2d"]["staged"] + r["goddard"]["staged"] for r in ranks)
     log(f"sharded paths: world messages {msgs}, staged_messages {staged} (all axes, all ranks)")
@@ -1945,7 +1927,8 @@ def phase_nccl_graphs(warm, xs, ref_u0, gd_f64_objective):
     cfg = dict(tick=dict(shard_timing.TICK, B=B, N=N, iters=ITERS, warmup=SHARD_WARMUP, timed=len(xs) - SHARD_WARMUP,
                          time=1, x0s=[x.cpu().numpy() for x in xs],
                          warm={f: getattr(warm, f).cpu().numpy() for f in warm._fields}),
-               chains={"tick": SHARD_CHAINS["tick"]}, chain_sizes=[1], goddard_sizes=[1])
+               chains={"tick": SHARD_CHAINS["tick"]}, chain_sizes=[1], goddard_sizes=[1],
+               goddard_eager_iters=GD_REF_ITERS)
     t0 = time.perf_counter()
     (r,) = shard_timing.run(1, cfg, timeout=SHARD_TIMEOUT)
     log(f"compiled sharded paths: a one-rank NCCL world, {time.perf_counter() - t0:.1f} s")
@@ -2131,6 +2114,31 @@ def phase_two_hosts(digests):
     return dict(paths=cr, scan_paths=scan_paths)
 
 
+def phase_bench():
+    """Phase 19: ctdirect_tpu_torch.bench's run and report at full width,
+    BENCH_REPS reps, under the f32 and the f64 block solve; its kernels'
+    counts are set to 0 just before its timed ticks and read just after.
+    Returns the ticks' CR kernel records and the cold starts' scan kernel
+    records."""
+    from ctdirect_tpu_torch import bench
+
+    paths, scan_paths = [], []
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        result = bench.run(dict(bench.DEFAULT_CFG, reps=BENCH_REPS, solve_f32=dtype == torch.float32), device="cuda",
+                           log=log)
+        line, failed = bench.report(result, log=log)
+        log(json.dumps(line))
+        if failed:
+            raise AssertionError(f"bench, {tag} block solve: {failed}")
+        c = result["counts"]
+        paths.append(path_record(f"bench_tick_double_integrator_{tag}", dtype, c["cr_launches"],
+                                 c["cr_grid_launches"], c["cr_launches"] * grid_per_solve(chain_blocks(N))))
+        scan_paths.append(scan_record(f"bench_cold_start_double_integrator_{tag}", torch.float64,
+                                      result["cold"]["scan_launches"], result["cold"]["block_solves"]))
+    return dict(paths=paths, scan_paths=scan_paths)
+
+
 def kernel_name(mangled):
     """`up_odd<double>` from `_ZN<len><namespace><len>up_oddIdE...`,
     `scan_kernel<float, 16, 0>` from `...scan_kernelIfLi16ELi0EE...`."""
@@ -2298,12 +2306,15 @@ def main():
     phase_done("phase 17b")
     lab = phase_lab(kernel, scan)
     phase_done("phase 18")
+    bench = phase_bench()
+    phase_done("phase 19")
 
     paths = [*main[torch.float32]["paths"], *main[torch.float64]["paths"], *tick["paths"], *batch["paths"],
              *goddard["paths"], suite, grid, fixture_ci["path"], *sharded, *orbit["paths"], ladder, *config5["paths"],
-             *hosts["paths"], *lab["paths"]]
+             *hosts["paths"], *lab["paths"], *bench["paths"]]
     scan_paths += [*main[torch.float32]["scan_paths"], *main[torch.float64]["scan_paths"], *tick["scan_paths"],
-                   fixture_ci["scan_path"], *orbit["scan_paths"], *hosts["scan_paths"], *lab["scan_paths"]]
+                   fixture_ci["scan_path"], *orbit["scan_paths"], *hosts["scan_paths"], *lab["scan_paths"],
+                   *bench["scan_paths"]]
     log(f"whole script {time.perf_counter() - t_start:.1f} s (the kernels' builds included)")
     print(card)
     print(json.dumps({"kernels": kernel_entries(kres, paths, sres, scan_paths), "ptxas": ptxas}))

@@ -38,12 +38,12 @@ Checks (a failed one exits non-zero):
     same KKT solves, host syncs and segment runs; on the card each call's
     CR kernel launches are its KKT solves (plus, in the first call, those
     of the segment warm-ups), each of 3 + 3 log2 P CUDA launches;
-  - one more graphed solve under torch.profiler (utils/profiling.py's
-    profiled_solve) sees KKT solves x (3 + 3 log2 P) CR CUDA launches; its
-    device busy / idle share and the CR kernel's share of busy are printed;
   - the batch with its rows moved at random, each only among the rows of
-    its alignment class (b mod ALIGN_PERIOD; a graphed call on the card),
-    gives every row the result it had in place, bit for bit: no row's
+    its alignment class (b mod ALIGN_PERIOD; on the card a graphed call
+    under torch.profiler, utils/profiling.py's profiled_solve, which sees
+    KKT solves x (3 + 3 log2 P) CR CUDA launches, its device busy / idle
+    share and the CR kernel's share of busy printed), gives every row the
+    result it had in place, bit for bit: no row's
     arithmetic depends on the other rows, nor on its position but through
     the alignment of its data, which such a move keeps, while every row
     gets new neighbours in its warp, block and tile. With `diagnostics`
@@ -273,18 +273,26 @@ def run(cfg: dict, device="cuda") -> dict:
     per = len(kernel.plan(kkt_chain, 1, 0, 1, 8)) if dev.type == "cuda" else 0
     out["grid_per_solve"] = per
 
-    if dev.type == "cuda":
-        solver.stats = BatchStats()
-        try:
-            out["profiled"] = profiling.profiled_solve(lambda: solver(*inputs), lambda: solver.stats.kkt_solves, per)
-        except AssertionError as e:
-            out["profiled"] = dict(error=str(e))
-
     def moved(rows):  # the batch with its rows in another order, against its own rows
         rows = torch.as_tensor(rows, device=dev)
         return result_diff(solver(*(x[rows] for x in inputs)), [x[rows] for x in res])
 
-    out["permuted_diff"] = moved(aligned_permutation(B))
+    perm = torch.as_tensor(aligned_permutation(B), device=dev)
+    if dev.type == "cuda":
+        # the graphed solve of the permuted batch is the profiled one (each
+        # profile taken runs it; every run held to the rows in place)
+        permuted, runs = [x[perm] for x in inputs], []
+        solver.stats = BatchStats()
+        try:
+            out["profiled"] = profiling.profiled_solve(lambda: runs.append(solver(*permuted)),
+                                                       lambda: solver.stats.kkt_solves, per)
+        except AssertionError as e:
+            out["profiled"] = dict(error=str(e))
+        rows = [x[perm] for x in res]
+        out["permuted_diff"] = max(result_diff(r, rows) for r in runs)
+        del permuted, runs, rows
+    else:
+        out["permuted_diff"] = moved(perm)
     if cfg["diagnostics"]:
         out["shift_diff"] = {s: moved(np.roll(np.arange(B), s)) for s in WITNESS_SHIFTS}
     # three scenarios alone (B=1; printed beside their rows, not compared:
@@ -387,8 +395,9 @@ def report(result: dict, cfg: dict, log=print) -> dict:
     if p is not None:
         _check("error" not in p, f"orbit batch, profiled graphed solve: {p.get('error')}")
         replay = calls["graphed replay"]["wall_s"]
-        log(f"  device split, graphed solve under torch.profiler: wall {p['wall']:.3f} s, device busy {p['busy']:.3f} s "
-            f"({100 * p['busy'] / p['wall']:.1f}%, idle {100 * (1 - p['busy'] / p['wall']):.1f}%; idle "
+        log(f"  device split, the permuted batch's graphed solve under torch.profiler: wall {p['wall']:.3f} s, "
+            f"device busy {p['busy']:.3f} s ({100 * p['busy'] / p['wall']:.1f}%, idle "
+            f"{100 * (1 - p['busy'] / p['wall']):.1f}%; idle "
             f"{100 * (1 - p['busy'] / replay):.1f}% of the unprofiled replay's {replay:.3f} s), CR kernel "
             f"{p['cr']:.3f} s ({100 * p['cr'] / p['busy']:.1f}% of busy, {p['cr_launches']} CUDA launches of it seen "
             f"= {p['cr_launches'] // result['grid_per_solve']} KKT solves x {result['grid_per_solve']}), "

@@ -28,10 +28,50 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
 from ctdirect_tpu_torch.solver.lanes import cr_solve_lanes
+
+# NVIDIA's H100 SXM data sheet: the HBM3 rate; 67 TFLOP/s is its f32 rate outside
+# the tensor cores and its f64 rate on them (DMMA, which the small matrix
+# products of the reduction could use)
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = {torch.float32: 67e12, torch.float64: 67e12}
+
+
+class Cost(NamedTuple):
+    """The least time the card could take for some work: bytes over
+    PEAK_BYTES_S or flops over PEAK_FLOP_S, whichever is larger."""
+
+    bound_ms: float
+    bound_by: str  # "bytes" or "operations"
+    bytes: float
+    flops: float
+
+
+def cost(dtype, nbytes, flops) -> Cost:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FLOP_S[dtype] * 1e3
+    if t_bytes >= t_ops:
+        return Cost(t_bytes, "bytes", nbytes, flops)
+    return Cost(t_ops, "operations", nbytes, flops)
+
+
+def solve_cost(dtype, P, bs, wb, nb) -> Cost:
+    """The cost of one solve of nb chains of P blocks: each input read once
+    and each output written once; the operations the reduction needs. Per
+    odd block: the inverse of A_o (2 bs^3), the five bs x bs products of the
+    couplings and Schur updates (10 bs^3), the three products with E_o (6
+    bs^2 wb), the border term (2 bs wb^2), the right-hand sides and the
+    down-sweep step (12 bs^2 + 4 bs wb); then one dense LU solve of the
+    root, n = bs + wb (2n^3/3 + 2n^2)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * nb * (P * (2 * bs * bs + bs * wb + 2 * bs) + wb * wb + 2 * wb)
+    per_odd = 12 * bs**3 + 6 * bs * bs * wb + 2 * bs * wb * wb + 12 * bs * bs + 4 * bs * wb
+    n = bs + wb
+    return cost(dtype, nbytes, nb * ((P - 1) * per_odd + 2 * n**3 / 3 + 2 * n * n))
+
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "cr_solve.cu"

@@ -45,6 +45,32 @@ _ENTRY = {torch.float32: "scan_solve_f32", torch.float64: "scan_solve_f64"}
 
 MAX_WIDTH = 64  # cap on bs + wb (kMaxWidth in the source)
 EXACT_MAX = 16  # widths built one library each (kExactMax in the source)
+SM_COUNT = 132  # the H100 SXM's SMs: the kernel walks a chain on one of them
+
+
+def _chain_flops(N, bs, wb):
+    """The operations of one chain's block elimination. Per block: the
+    inverse (2 bs^3), Ainv E and Ainv r (2 bs^2 wb + 2 bs^2), the border
+    terms (2 bs wb^2 + 2 bs wb), the back sweep (4 bs^2 + 2 bs wb); per block
+    after the first, C and the Schur updates of A, E and r (4 bs^3 + 2 bs^2
+    wb + 2 bs^2); then the border solve (2 wb^3/3 + 2 wb^2)."""
+    return (N * (2 * bs**3 + 2 * bs * bs * wb + 2 * bs * wb * wb + 6 * bs * bs + 4 * bs * wb)
+            + (N - 1) * (4 * bs**3 + 2 * bs * bs * wb + 2 * bs * bs) + 2 * wb**3 / 3 + 2 * wb * wb)
+
+
+def solve_cost(dtype, N, bs, wb, nb) -> cr_kernel.Cost:
+    """The cost of one solve of nb chains of N blocks (`cr_kernel.Cost`):
+    each input read once and each output written once; the operations of
+    the block elimination (`_chain_flops`)."""
+    itemsize = torch.finfo(dtype).bits // 8
+    nbytes = itemsize * nb * (N * (bs * bs + bs * wb + 2 * bs) + (N - 1) * bs * bs + wb * wb + 2 * wb)
+    return cr_kernel.cost(dtype, nbytes, nb * _chain_flops(N, bs, wb))
+
+
+def latency_floor_ms(dtype, N, bs, wb):
+    """One chain's operations at one SM's share of the peak: its N steps
+    run in order on one SM."""
+    return _chain_flops(N, bs, wb) / (cr_kernel.PEAK_FLOP_S[dtype] / SM_COUNT) * 1e3
 
 
 def width_key(bs):

@@ -4,7 +4,8 @@ synchronization, and `torch.profiler` tracing into a Chrome trace; on a
 card, a profile that counts the CUDA kernels it saw and the activity
 records CUPTI dropped (`kernel_events`, `profiled_solve`), the device
 time of a profiled run split by the stages that were open on the host when
-each kernel was launched (`ranged`, `kkt_ranges`, `stage_split`), and the
+each kernel was launched (`ranged`, `kkt_ranges`, `stage_split`; of MPC
+ticks, `tick_stage_split`), and the
 device's idle time of a profiled compiled solve split by the segment whose
 host window it falls in (`segment_ranges`, `segment_split`)."""
 
@@ -382,6 +383,41 @@ def kkt_ranges(kkt):
                 setattr(kkt, name, own[name])
             else:
                 delattr(kkt, name)
+
+
+def tick_stage_split(make_ctrl, states, xs, ticks: int) -> Dict[str, float]:
+    """Device ms per tick by stage (`stage_split`) of `ticks` eager ticks
+    (MPCController.eager) from `states` over xs, for a controller built by
+    make_ctrl() while these run in profiler ranges (for this run only):
+    `mpc.shift_state` (shift), the resolve's gradients and vector-Jacobian
+    products (derivatives: grad f, J^T lam), and the KKT operator's prepare,
+    _assemble, _block_solve and the rest of its solve (`kkt_ranges`). A
+    kernel launched outside every range goes to "update" (x0 rows, barrier
+    terms, residuals, the step to the boundary, the state update, the exit
+    norms). The replayed tick runs the same kernels in the same order."""
+    from ctdirect_tpu_torch.parallel import mpc
+    from ctdirect_tpu_torch.solver import resolve
+
+    grad, vjp, shift = resolve.grad, resolve.vjp, mpc.shift_state
+
+    def vjp_ranged(fn, *primals):
+        out, back = ranged("derivatives", vjp)(fn, *primals)
+        return out, ranged("derivatives", back)
+
+    def run():
+        s = states
+        for x0 in xs[:ticks]:
+            s, *_ = ctrl.eager(s, x0)
+
+    resolve.grad, resolve.vjp = (lambda fn: ranged("derivatives", grad(fn))), vjp_ranged
+    mpc.shift_state = ranged("shift", shift)
+    try:
+        ctrl = make_ctrl()
+        with kkt_ranges(ctrl.kkt):
+            _, prof, _, _ = device_profile(run)
+    finally:
+        resolve.grad, resolve.vjp, mpc.shift_state = grad, vjp, shift
+    return stage_split(prof, ticks, outside="update")
 
 
 def stage_split(prof, calls: int, outside: str) -> Dict[str, float]:

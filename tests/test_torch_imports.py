@@ -17,7 +17,8 @@ def test_import_leaves_jax_out():
         "ctdirect_tpu_torch.utils.structure, ctdirect_tpu_torch.utils.profiling, "
         "ctdirect_tpu_torch.utils.plot, ctdirect_tpu_torch.parallel.time_shard, "
         "ctdirect_tpu_torch.parallel.spmd, ctdirect_tpu_torch.entry, ctdirect_tpu_torch.multihost, "
-        "ctdirect_tpu_torch.latency_lab, ctdirect_tpu_torch.native, ctdirect_tpu_torch.solver.scan_kernel; "
+        "ctdirect_tpu_torch.latency_lab, ctdirect_tpu_torch.native, ctdirect_tpu_torch.solver.scan_kernel, "
+        "ctdirect_tpu_torch.bench; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ctdirect_tpu')]; "
         "assert not bad, bad"
     )
